@@ -1,0 +1,8 @@
+"""pose6d_tpu_torch: the PyTorch/CUDA port of pose6d_tpu for NVIDIA Hopper.
+
+The JAX package ``pose6d_tpu`` is the frozen reference; this package
+imports nothing of it (nor of JAX). Its entry points run on ``cuda``
+unless the caller passes ``device="cpu"``. The hot steps of the main
+path run in hand-written CUDA C++ kernels (``csrc/``), built at first
+use; on CPU tensors each kernel's plain PyTorch version runs instead.
+"""

@@ -1,0 +1,53 @@
+"""Rank-major spatial-consistency sums (kernel: csrc/consistency_rank_major.cu).
+
+Port of pose6d_tpu/ops/pallas/consistency.py:80
+consistency_sum_rank_major. For a CUDA tensor the wrapper launches the
+hand-written kernel; for a CPU tensor it runs the plain PyTorch version
+beside it.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..geometry import pairwise_sqdist
+from . import _build
+
+
+def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
+    """sum_i w_i * |d_cad(i, j) - dpc(i mod v2, j mod v2)| per pair j,
+    one frame at a time (the (P, P) tables are 420 MB at P = 10240)."""
+    k = coords_cad.shape[1] // v2
+    out = []
+    for ca, dp, wf in zip(coords_cad, dpc, w):
+        da = torch.sqrt(pairwise_sqdist(ca, ca))
+        out.append(wf @ torch.abs(da - dp.repeat(k, k)))
+    return torch.stack(out)
+
+
+def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
+    """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
+    (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
+    Returns (B, P) f32 sums."""
+    if coords_cad.device.type == "cpu":
+        return consistency_sum_rank_major_plain(coords_cad, dpc, w, v2)
+    if coords_cad.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords_cad.device}")
+    bsz, p, c = coords_cad.shape
+    if c != 3 or p != 5 * v2:
+        raise ValueError(f"kernel takes (B, 5 * v2, 3): "
+                         f"{tuple(coords_cad.shape)}, v2={v2}")
+    if dpc.shape != (bsz, v2, v2) or w.shape != (bsz, p):
+        raise ValueError(f"bad shapes dpc{tuple(dpc.shape)} w{tuple(w.shape)}")
+    if any(t.dtype != torch.float32 for t in (coords_cad, dpc, w)):
+        raise TypeError("coords_cad, dpc, w must be float32")
+    if not (dpc.device == w.device == coords_cad.device):
+        raise ValueError("coords_cad, dpc, w must be on one device")
+    coords_cad, dpc, w = (t.contiguous() for t in (coords_cad, dpc, w))
+    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
+    lib = _build.library("consistency_rank_major.cu")
+    code = lib.consistency_sum_rank_major_f32(
+        coords_cad.data_ptr(), dpc.data_ptr(), w.data_ptr(), out.data_ptr(),
+        bsz, v2, p // v2, _build.stream_ptr(w.device))
+    _build.check(code, "consistency_sum_rank_major")
+    _build.LAUNCHES["consistency_sum_rank_major"] += 1
+    return out

@@ -1,0 +1,83 @@
+"""Batched point-to-point ICP (port of pose6d_tpu/solvers/icp.py).
+
+Each iteration pairs every transformed source point with its nearest
+valid target point (the masked argmin kernel on the card) and takes a
+distance-gated Kabsch update. The iteration count is fixed.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.nn import nearest_valid
+from .kabsch import kabsch_umeyama
+
+FINE_ITERS = 5   # full-resolution iterations at the end of a coarse run
+
+
+def _gather_rows(x, idx):
+    """x (B, M, 3), idx (B, N) -> (B, N, 3)."""
+    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, 3))
+
+
+def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
+                    max_iter: int = 50, coarse_stride: int = 1):
+    """Refine (R0, t0) aligning src (B, N, 3) onto tgt (B, M, 3).
+
+    max_corr_dist (B,) or scalar. coarse_stride > 1 matches all but the
+    last FINE_ITERS iterations against every coarse_stride-th target
+    point; the final iterations and the reported rmse / n_corr run at
+    full resolution. Returns dict R (B, 3, 3), t (B, 3), rmse (B,),
+    n_corr (B,).
+    """
+    src = src.float()
+    tgt = tgt.float()
+    bsz = src.shape[0]
+    gate = torch.as_tensor(max_corr_dist, dtype=torch.float32,
+                           device=src.device).expand(bsz)[:, None] ** 2
+
+    def nn_pairs(R, t, tg, tv):
+        moved = src @ R.transpose(-1, -2) + t[:, None, :]
+        dmin, j = nearest_valid(moved, tg, tv)
+        w = (src_valid & (dmin < gate)).float()
+        return j, w, dmin
+
+    def step(R, t, tg, tv):
+        j, w, _ = nn_pairs(R, t, tg, tv)
+        ok = (w.sum(-1) >= 3)
+        R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
+        return (torch.where(ok[:, None, None], R2, R),
+                torch.where(ok[:, None], t2, t))
+
+    R, t = R0.float(), t0.float()
+    n_fine = max_iter if coarse_stride <= 1 else min(FINE_ITERS, max_iter)
+    n_coarse = max_iter - n_fine
+    if n_coarse > 0:
+        tg_c = tgt[:, ::coarse_stride].contiguous()
+        tv_c = tgt_valid[:, ::coarse_stride].contiguous()
+        for _ in range(n_coarse):
+            R, t = step(R, t, tg_c, tv_c)
+    for _ in range(n_fine):
+        R, t = step(R, t, tgt, tgt_valid)
+    _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
+    n_corr = w.sum(-1)
+    rmse = torch.sqrt((dmin * w).sum(-1) / torch.clamp(n_corr, min=1.0))
+    return {"R": R, "t": t, "rmse": rmse, "n_corr": n_corr}
+
+
+def icp_cloud_to_model(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
+                       max_corr_dist, max_iter: int = 50,
+                       coarse_stride: int = 1):
+    """Partial-view refinement: match the OBSERVED cloud onto the CAD
+    (bias-free for partial views), then invert back to a model->camera
+    pose. Shapes as icp_point2point with src = pc, tgt = cad."""
+    R0 = R0.float()
+    t0 = t0.float()
+    Rinv = R0.transpose(-1, -2)
+    out = icp_point2point(pc_xyz, pc_valid, cad_xyz, cad_valid, Rinv,
+                          -(Rinv @ t0[..., None])[..., 0],
+                          max_corr_dist=max_corr_dist, max_iter=max_iter,
+                          coarse_stride=coarse_stride)
+    Rm, tm = out["R"], out["t"]
+    Rt = Rm.transpose(-1, -2)
+    return {"R": Rt, "t": -(Rt @ tm[..., None])[..., 0], "rmse": out["rmse"],
+            "n_corr": out["n_corr"]}

@@ -1,0 +1,133 @@
+"""The port's cached-mode Predictor against the JAX Predictor on a real
+committed frame, and the package's hygiene: no JAX import, CUDA by
+default, no kernel build on a host without CUDA."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from pose6d_tpu.api import Predictor as JaxPredictor
+from pose6d_tpu_torch.api import Predictor
+from pose6d_tpu_torch.data.ply import read_ply
+from pose6d_tpu_torch.models import DPFMNet, load_flax_checkpoint
+from pose6d_tpu_torch.ops.kernels import _build
+from pose6d_tpu_torch.solvers.kabsch import kabsch_umeyama
+from pose6d_tpu_torch.spectral.operators import point_cloud_operators
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+CKPT = ROOT / "weights" / "synth_seen.msgpack"
+FRAME = (ROOT / "results_synth_unseen" / "step5737" / "results_poses_RANSAC"
+         / "ply" / "obj_11_result_0")
+
+
+def _rot_deg(Ra, Rb):
+    c = (np.trace(Ra.T @ Rb) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
+def test_predictor_matches_jax_predictor():
+    """LM obj 11 (CAD cut to 2000 of its 5002 points, all 622 observed
+    points), point-cloud operators for both, synth_seen weights, the
+    same RANSAC draws on both sides."""
+    cad = read_ply(FRAME / "cad_0.ply")["verts"]
+    gt = read_ply(FRAME / "cad_0_pose_gt.ply")["verts"]
+    pc = read_ply(FRAME / "pc_0.ply")["verts"]
+    R_gt, t_gt = (x[0].numpy() for x in kabsch_umeyama(
+        torch.tensor(cad, dtype=torch.float32)[None],
+        torch.tensor(gt, dtype=torch.float32)[None], torch.ones(1, len(cad))))
+    sel = np.random.default_rng(0).permutation(len(cad))[:2000]
+    cad_ops = point_cloud_operators(cad[sel])
+    pc_ops = point_cloud_operators(pc)
+    diam = float(np.linalg.norm(cad_ops["xyz"].max(0)
+                                - cad_ops["xyz"].min(0)))
+    sizes = {"v_cad": 2048, "v_pc": 640}
+
+    params = {"params": serialization.msgpack_restore(
+        CKPT.read_bytes())["params"]}
+    ref = JaxPredictor(params, {11: cad_ops}, mode="cached", **sizes
+                       ).predict_with_operators(11, pc_ops, seed=0)
+    # JAX's own answer on this frame (measured 5.2 deg, 0.3 % diam; the
+    # committed frames hold none that it recovers within 2 deg at a
+    # test-sized CAD)
+    assert _rot_deg(ref["R"], R_gt) < 6.0
+    assert np.linalg.norm(ref["t"] - t_gt) < 0.01 * diam
+
+    key, draws = jax.random.PRNGKey(0), []
+    for _ in range(131072 // 512):       # ransac_pose's draws, per block
+        key, sub = jax.random.split(key)
+        draws.append(np.asarray(jax.random.uniform(sub, (512, 3))))
+    model = load_flax_checkpoint(CKPT, DPFMNet())
+    out = Predictor(model, {11: cad_ops}, device="cpu", **sizes
+                    ).predict_with_operators(11, pc_ops,
+                                             uniforms=np.stack(draws))
+    # C differs by bf16 rounding in JAX's attention, so the pairs may
+    # differ a little; the pose must not (measured 0.14 deg, 3e-4 diam)
+    assert _rot_deg(out["R"], ref["R"]) < 1.0
+    assert np.linalg.norm(out["t"] - ref["t"]) < 0.01 * diam
+    assert out["icp_rmse"] < 0.05 * diam
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pose6d_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'pose6d_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'pose6d_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('pose6d_tpu_')]))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 25    # every submodule imported
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    for name in ("jax", "flax", "pose6d_tpu."):
+        assert f"import {name}" not in src and f"from {name}" not in src
+
+
+def test_predictor_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    model = DPFMNet()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(model, {})
+
+
+def test_online_mode_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Predictor(DPFMNet(), {}, mode="online", device="cpu")
+
+
+def test_cpu_run_never_builds_kernels(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("kernel build reached on a CPU run")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(_build, "_start", refuse)
+    rng = np.random.default_rng(0)
+
+    def ops(n):
+        return {"xyz": (rng.normal(size=(n, 3)) * 3 + 100).astype(np.float32),
+                "mass": np.full(n, 0.01, np.float32),
+                "evals": np.linspace(0, 5, 64).astype(np.float32),
+                "evecs": rng.normal(size=(n, 64)).astype(np.float32) * 0.1}
+
+    before = dict(_build.LAUNCHES)
+    out = Predictor(DPFMNet(), {1: ops(120)}, v_cad=128, v_pc=64,
+                    ransac_hypotheses=512, icp_iters=3, device="cpu"
+                    ).predict_with_operators(1, ops(60))
+    assert np.isfinite(out["R"]).all() and np.isfinite(out["t"]).all()
+    assert _build.LAUNCHES == before

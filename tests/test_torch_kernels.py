@@ -1,0 +1,155 @@
+"""The port's kernel modules on the CPU: each plain version (what the
+wrapper runs for a CPU tensor) against the JAX package's function on
+the same numpy inputs. Pallas kernels run in interpret mode, as
+tests/test_pallas.py runs them."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pose6d_tpu.models.attention import MultiHeadedAttention as JaxMHA
+from pose6d_tpu.ops import nn as jax_nn
+from pose6d_tpu.ops.pallas import (consistency_sum_rank_major as jax_rm,
+                                   masked_argmin_cdist as jax_argmin,
+                                   masked_topk_cdist as jax_topk)
+from pose6d_tpu_torch.models.attention import MultiHeadedAttention
+from pose6d_tpu_torch.models.weights import state_dict_from_flax
+from pose6d_tpu_torch.ops import nn as torch_nn
+from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
+                                          flash_cross_attention,
+                                          masked_argmin_cdist,
+                                          masked_topk_cdist)
+
+torch.set_num_threads(2)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))[None]   # add the frame axis
+
+
+def _cdist_inputs(seed, n, m, c, n_valid):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, c)).astype(np.float32)
+    b = rng.normal(size=(m, c)).astype(np.float32)
+    valid = np.zeros(m, bool)
+    valid[rng.permutation(m)[:n_valid]] = True
+    return a, b, valid
+
+
+@pytest.mark.parametrize("c", [3, 30])
+def test_argmin_plain_matches_pallas(c):
+    a, b, valid = _cdist_inputs(0, 256, 192, c, 150)
+    jd, ji = jax_argmin(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
+                        block_n=128, interpret=True)
+    td, ti = masked_argmin_cdist(_t(a), _t(b), _t(valid))
+    # random normal inputs: nearest neighbours are well separated, so
+    # indices must agree exactly; d2 differs by f32 summation order only
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [3, 30])
+def test_topk_plain_matches_pallas(c):
+    a, b, valid = _cdist_inputs(1, 128, 96, c, 70)
+    jd, ji = jax_topk(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
+                      k=5, block_n=128, interpret=True)
+    td, ti = masked_topk_cdist(_t(a), _t(b), _t(valid), k=5)
+    # exact indices on well-separated inputs; d2 to f32 summation order
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n_valid", [40, 3])
+def test_topk_valid_matches_jax_kpass(n_valid):
+    """Against the XLA k-pass, including rows with fewer than k valid
+    columns (3 < k = 5), where it returns d2 = 1e9 and index 0."""
+    a, b, valid = _cdist_inputs(2, 64, 48, 30, n_valid)
+    jd, ji = jax_nn.topk_valid(jnp.asarray(a), jnp.asarray(b),
+                               jnp.asarray(valid), k=5)
+    td, ti = torch_nn.topk_valid(_t(a), _t(b), _t(valid), k=5)
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    # the 1e9 fill is exact; real distances agree to f32 summation order
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+    if n_valid < 5:
+        assert (ti[0, :, n_valid:] == 0).all()
+        assert (td[0, :, n_valid:] == 1e9).all()
+
+
+def test_nearest_valid_matches_jax():
+    a, b, valid = _cdist_inputs(3, 100, 80, 3, 60)
+    jd, ji = jax_nn.nearest_valid(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(valid))
+    td, ti = torch_nn.nearest_valid(_t(a), _t(b), _t(valid))
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    # f32 summation order only
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_consistency_plain_matches_pallas():
+    rng = np.random.default_rng(4)
+    v2, k = 128, 3
+    ca = (rng.normal(size=(v2 * k, 3)) * 2).astype(np.float32)
+    pc = (rng.normal(size=(v2, 3)) * 2).astype(np.float32)
+    w = (rng.random(v2 * k) > 0.3).astype(np.float32)
+    dpc = np.linalg.norm(pc[:, None] - pc[None], axis=-1).astype(np.float32)
+    ref = jax_rm(jnp.asarray(ca), jnp.asarray(dpc), jnp.asarray(w), v2=v2,
+                 block_i=64, block_j=128, interpret=True)
+    out = consistency_sum_rank_major(_t(ca), _t(dpc), _t(w), v2)
+    # sums of ~270 terms of size ~5: f32 summation-order differences
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_attention_plain_matches_float64_softmax():
+    rng = np.random.default_rng(5)
+    bsz, n, m, dim, h = 2, 40, 33, 16, 2
+    q, k, v = (rng.normal(size=(bsz, s, dim, h)).astype(np.float32)
+               for s in (n, m, m))
+    valid = rng.random((bsz, m)) > 0.4
+    valid[1] = False                 # a frame with no valid key at all
+    out = flash_cross_attention(*(torch.as_tensor(x) for x in (q, k, v)),
+                                torch.as_tensor(valid), dim ** -0.5)
+    s = np.einsum("bndh,bmdh->bhnm", q.astype(np.float64), k) / dim ** 0.5
+    s = np.where(valid[:, None, None], s, -np.inf)
+    with np.errstate(invalid="ignore"):    # frame 1: -inf - -inf
+        p = np.exp(s - s.max(-1, keepdims=True))
+        p = p / p.sum(-1, keepdims=True)
+    ref = np.einsum("bhnm,bmdh->bndh", p, v)
+    ref[1] = 0.0                     # rows with no valid key are zeros
+    # f32 against f64 on O(1) values: f32 rounding only
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_module_matches_jax_xla_branch():
+    """The port's MultiHeadedAttention (f32) against the JAX package's
+    XLA branch, which rounds q, k, v and the probabilities to bf16."""
+    rng = np.random.default_rng(6)
+    n, m, d_model = 64, 48, 32
+    x = rng.normal(size=(n, d_model)).astype(np.float32)
+    src = rng.normal(size=(m, d_model)).astype(np.float32)
+    x_valid = np.arange(n) < 60
+    s_valid = np.arange(m) < 40
+    mod = JaxMHA(num_heads=2, d_model=d_model)
+    params = mod.init(jax.random.PRNGKey(0), x, src, src, x_valid, s_valid)
+    ref = np.asarray(mod.apply(params, x, src, src, x_valid, s_valid))
+    port = MultiHeadedAttention(2, d_model)
+    port.load_state_dict(state_dict_from_flax(params["params"]))
+    with torch.no_grad():
+        out = port(_t(x), _t(src), _t(src), _t(x_valid), _t(s_valid))[0]
+    # bf16 keeps 8 mantissa bits (relative 2^-8 ~ 4e-3) on q, k, v and
+    # the probabilities; a few such roundings through the merge layer
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=2e-2 * np.abs(ref).max())
+
+
+def test_cpu_tensors_never_launch():
+    before = dict(LAUNCHES)
+    a, b, valid = _cdist_inputs(7, 16, 16, 3, 10)
+    masked_topk_cdist(_t(a), _t(b), _t(valid), k=5)
+    masked_argmin_cdist(_t(a), _t(b), _t(valid))
+    assert LAUNCHES == before

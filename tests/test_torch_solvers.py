@@ -1,0 +1,191 @@
+"""The port's solvers on the CPU against the JAX package on the same
+numpy inputs: spatial filter (rank-major), Kabsch / triad, RANSAC with
+shared draws, cloud-to-model ICP."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pose6d_tpu import solvers as jax_solvers
+from pose6d_tpu.solvers import kabsch as jax_kabsch
+from pose6d_tpu_torch import solvers
+from pose6d_tpu_torch.solvers import kabsch
+
+torch.set_num_threads(2)
+
+
+def _rotation(rng):
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float32)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def test_filter_matches_jax_rank_major():
+    """Fed the same C, pairs and masks must be exact (well-separated
+    random geometry; the same construction as tests/test_solvers.py's
+    rank-major parity test)."""
+    rng = np.random.default_rng(11)
+    v1, v2, k = 256, 128, 30
+    cad = (rng.normal(size=(v1, 3)) * 2).astype(np.float32)
+    perm = rng.permutation(v1)[:v2]
+    pc = (cad[perm] @ _rotation(rng).T + rng.normal(size=3)
+          ).astype(np.float32)
+    evecs_x = np.linalg.qr(rng.normal(size=(v1, k)))[0].astype(np.float32)
+    evecs_y = evecs_x[perm].copy()
+    bad = rng.choice(v2, 40, replace=False)
+    evecs_y[bad] = np.linalg.qr(rng.normal(size=(v1, k)))[0][:len(bad)]
+    C = (np.eye(k) + 0.01 * rng.normal(size=(k, k))).astype(np.float32)
+    diam = float(np.linalg.norm(cad.max(0) - cad.min(0)))
+    x_valid = np.arange(v1) < 250
+    y_valid = np.ones(v2, bool)
+    y_valid[rng.choice(v2, 9, replace=False)] = False
+    args = (C, evecs_x, evecs_y, cad, pc, x_valid, y_valid)
+    jp, jv = jax_solvers.spatial_filtering_fmap2pointmap(
+        *(jnp.asarray(a) for a in args), diam, k=5, rank_major=True)
+    tp, tv = solvers.spatial_filtering_fmap2pointmap(
+        *(_t(a)[None] for a in args), torch.tensor([diam]))
+    np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
+    assert 0 < int(tv.sum()) < 5 * v2
+
+
+def test_triad_matches_jax():
+    rng = np.random.default_rng(1)
+    src = rng.normal(size=(32, 3, 3)).astype(np.float32)
+    dst = rng.normal(size=(32, 3, 3)).astype(np.float32)
+    jR, jt = jax.vmap(jax_kabsch.triad_rigid)(jnp.asarray(src),
+                                              jnp.asarray(dst))
+    R, t = kabsch.triad_rigid(_t(src), _t(dst))
+    # a few cross products and normalizations in f32
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["plain", "weighted", "zero_weights",
+                                  "collinear"])
+def test_kabsch_matches_jax(case):
+    rng = np.random.default_rng(2)
+    R_gt = _rotation(rng)
+    src = rng.normal(size=(4, 60, 3)).astype(np.float32) * 3
+    if case == "collinear":
+        src = np.linspace(0, 1, 60, dtype=np.float32)[None, :, None] \
+            * rng.normal(size=(4, 1, 3)).astype(np.float32)
+    dst = (src @ R_gt.T + np.array([1.0, -2.0, 0.5], np.float32)
+           + 0.01 * rng.normal(size=src.shape)).astype(np.float32)
+    w = None
+    if case == "weighted":
+        w = rng.random((4, 60)).astype(np.float32)
+    elif case == "zero_weights":
+        w = np.zeros((4, 60), np.float32)
+    jw = None if w is None else jnp.asarray(w)
+    jR, jt = jax.vmap(lambda s, d, ww: jax_kabsch.kabsch_umeyama(s, d, ww),
+                      in_axes=(0, 0, None if w is None else 0))(
+        jnp.asarray(src), jnp.asarray(dst), jw)
+    R, t = kabsch.kabsch_umeyama(_t(src), _t(dst), torch.ones(4, 60)
+                                 if w is None else _t(w))
+    assert torch.isfinite(R).all() and torch.isfinite(t).all()
+    np.testing.assert_allclose(
+        (R @ R.transpose(-1, -2)).numpy(), np.broadcast_to(np.eye(3), (4, 3, 3)),
+        atol=1e-5)
+    if case == "collinear":
+        # rotation about the line is undetermined: compare the residuals
+        res = kabsch.transform_residuals(R, t, _t(src), _t(dst)).numpy()
+        jres = np.asarray(jax.vmap(jax_kabsch.transform_residuals)(
+            jR, jt, jnp.asarray(src), jnp.asarray(dst)))
+        np.testing.assert_allclose(res, jres, atol=1e-4)
+        return
+    # eigh vs unrolled Jacobi on a well-separated top eigenvalue: both
+    # reach f32 precision (q and -q give the same R)
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-4)
+
+
+def _jax_uniforms(key, n_blocks, hyp_block):
+    """The draws ransac_pose makes: split the key once per block, then
+    one uniform (hyp_block, 3) draw from the sub-key."""
+    out = []
+    for _ in range(n_blocks):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.uniform(sub, (hyp_block, 3))))
+    return np.stack(out)
+
+
+def test_ransac_matches_jax_with_shared_draws():
+    rng = np.random.default_rng(3)
+    n, n_hyp, hyp_block = 300, 2048, 64
+    srcs, dsts, valids, us, refs = [], [], [], [], []
+    # two frames: 60 % and 25 % inliers, so they exit after different
+    # block counts (the low one after several blocks)
+    for f, ratio in enumerate((0.6, 0.25)):
+        src = (rng.normal(size=(n, 3)) * 5).astype(np.float32)
+        R_gt = _rotation(rng)
+        dst = src @ R_gt.T + np.array([3.0, 1.0, 40.0], np.float32)
+        out = rng.random(n) > ratio
+        dst[out] = rng.normal(size=(out.sum(), 3)) * 5 + 40
+        dst = dst.astype(np.float32)
+        valid = np.arange(n) < 280
+        key = jax.random.PRNGKey(f)
+        ref = jax_solvers.ransac_pose(
+            key, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid),
+            threshold=0.5, n_hypotheses=n_hyp, hyp_block=hyp_block)
+        srcs.append(src); dsts.append(dst); valids.append(valid)
+        us.append(_jax_uniforms(key, n_hyp // hyp_block, hyp_block))
+        refs.append(ref)
+    res = solvers.ransac_pose(_t(np.stack(srcs)), _t(np.stack(dsts)),
+                              _t(np.stack(valids)), threshold=0.5,
+                              n_hypotheses=n_hyp, hyp_block=hyp_block,
+                              uniforms=_t(np.stack(us)))
+    trials = [int(r["n_trials"]) for r in refs]
+    assert trials[0] < trials[1]
+    for f, ref in enumerate(refs):
+        assert int(res["n_trials"][f]) == trials[f]
+        assert int(res["n_inliers"][f]) == int(ref["n_inliers"])
+        # same hypothesis, then two f32 least-squares refits
+        np.testing.assert_allclose(res["R"][f].numpy(), np.asarray(ref["R"]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(res["t"][f].numpy(), np.asarray(ref["t"]),
+                                   atol=1e-4 * 50)   # 1e-4 of |t| ~ 40
+
+
+@pytest.mark.parametrize("coarse_stride", [1, 4])
+def test_icp_cloud_to_model_matches_jax(coarse_stride):
+    rng = np.random.default_rng(4)
+    cad = (rng.normal(size=(400, 3)) * 3).astype(np.float32)
+    cad_valid = np.arange(400) < 380
+    R_gt = _rotation(rng)
+    t_gt = np.array([1.0, 2.0, 60.0], np.float32)
+    sel = rng.permutation(380)[:150]
+    pc = (cad[sel] @ R_gt.T + t_gt + 0.01 * rng.normal(size=(150, 3))
+          ).astype(np.float32)
+    pc = np.concatenate([pc, np.zeros((10, 3), np.float32)])
+    pc_valid = np.arange(160) < 150
+    a = np.radians(5.0)   # start 5 degrees off about z, 0.5 cm off
+    Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                   [0, 0, 1]])
+    R0 = (R_gt @ Rz).astype(np.float32)
+    t0 = t_gt + np.array([0.3, -0.2, 0.4], np.float32)
+    args = (cad, cad_valid, pc, pc_valid, R0, t0)
+    ref = jax_solvers.icp_cloud_to_model(
+        *(jnp.asarray(a) for a in args), max_corr_dist=2.0, max_iter=12,
+        coarse_stride=coarse_stride, fine_iters=5)
+    out = solvers.icp_cloud_to_model(
+        *(_t(a)[None] for a in args), max_corr_dist=2.0, max_iter=12,
+        coarse_stride=coarse_stride)
+    # identical correspondences each step; f32 Kabsch (eigh vs Jacobi)
+    np.testing.assert_allclose(out["R"][0].numpy(), np.asarray(ref["R"]),
+                               atol=1e-4)
+    np.testing.assert_allclose(out["t"][0].numpy(), np.asarray(ref["t"]),
+                               atol=1e-3)
+    np.testing.assert_allclose(out["rmse"][0].numpy(),
+                               np.asarray(ref["rmse"]), rtol=1e-3)
+    assert int(out["n_corr"][0]) == int(ref["n_corr"])
