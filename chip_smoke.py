@@ -30,10 +30,33 @@ FRAMES = ROOT / "results_synth_unseen" / "step5737" / \
 # (object id, result folder, file index)
 OBJECTS = ((5, "obj_5_result_1", 1), (11, "obj_11_result_0", 0))
 BATCH = 16
+TRAIN_BATCH = 8
 # one H100 SXM (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 F32_EPS = 2.0 ** -24
+
+
+# the kernels each driven path must launch (its counts are set to 0 just
+# before the path runs and read just after)
+PATH_KERNELS = {
+    "serve": ("flash_cross_attention", "consistency_sum_rank_major",
+              "masked_topk_cdist", "masked_argmin_cdist"),
+    "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
+    "train": ("flash_cross_attention", "flash_cross_attention_backward",
+              "masked_argmin_cdist"),
+}
+
+
+def launched(names, path: str) -> dict:
+    """The launch counts since the last reset; raises if a kernel of
+    `names` was not launched."""
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES
+    counts = dict(LAUNCHES)
+    missing = [n for n in names if not counts[n]]
+    if missing:
+        raise AssertionError(f"{path}: not launched: {missing} ({counts})")
+    return counts
 
 
 def emit(phase: str, **fields) -> None:
@@ -185,9 +208,158 @@ def check_kernels(dev) -> dict:
             plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=by,
             library_ms=cuda_ms(library, 5),
             shapes=f"a (16,2048,{c}) x b (16,5120,{c}), k={kk_}")
+    rows["flash_cross_attention_backward"] = check_flash_backward(dev, g)
+    rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
     for name, row in rows.items():
         emit("kernel_check", name=name, **row)
     return rows
+
+
+def check_flash_backward(dev, g) -> dict:
+    """dq, dk, dv of the hand-written backward against autograd through
+    the plain version, at B = 8 in both directions of the refiner, with
+    padded queries (dout = 0 there, as after merge * q_valid) and one
+    frame whose keys are all masked."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.kernels.attention import _forward_kernel
+    B, scale = TRAIN_BATCH, 16 ** -0.5
+    ms = plain_ms = lib_ms = b_ms = 0.0
+    err, by, tols = 0.0, "", []
+    for n, m, n_valid, m_valid in ((5120, 2048, 5000, 2000),
+                                   (2048, 5120, 2000, 5000)):
+        q, kk, vv = (torch.randn((B, s, 16, 2), device=dev, generator=g)
+                     for s in (n, m, m))
+        q_valid = torch.arange(n, device=dev).expand(B, n) < n_valid
+        kv = torch.arange(m, device=dev).expand(B, m) < m_valid
+        kv[3] = False                              # a frame with no key
+        dout = torch.randn((B, n, 16, 2), device=dev, generator=g) \
+            * q_valid[..., None, None]
+        out, lse = _forward_kernel(q, kk, vv, kv, scale, True)
+        got = K.flash_cross_attention_backward(q, kk, vv, kv, scale, out,
+                                               lse, dout)
+        want = K.flash_cross_attention_backward_plain(q, kk, vv, kv, scale,
+                                                      dout)
+        s = torch.einsum("bndh,bmdh->bnhm", q, kk) * scale
+        lse_ref = torch.logsumexp(s.masked_fill(~kv[:, None, None], -math.inf),
+                                  -1)
+        has_key = kv.any(-1)[:, None, None]     # L = -inf checked below
+        pairs = [(lse.where(has_key, 0.0), lse_ref.where(has_key, 0.0)),
+                 *zip(got, want)]
+        for a, b in pairs:
+            # f32 sums over <= 5120 terms in another order, and the
+            # probabilities rebuilt from L instead of a normalised sum
+            tol = 1e-4 * b.abs().max().item() + 1e-6
+            e = (a - b).abs().max().item()
+            if not e <= tol:
+                raise AssertionError(f"flash backward error {e} > {tol}")
+            err, tols = max(err, e), tols + [tol]
+        if not (bool((lse[3] == -math.inf).all()) and not got[0][3].any()
+                and not got[1][~kv].any() and not got[2][~kv].any()):
+            raise AssertionError("masked keys or the key-less frame got a "
+                                 "gradient")
+        ms += cuda_ms(lambda: K.flash_cross_attention_backward(
+            q, kk, vv, kv, scale, out, lse, dout), 10)
+        plain_ms += cuda_ms(lambda: K.flash_cross_attention_backward_plain(
+            q, kk, vv, kv, scale, dout), 2)
+        qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+                      for x in (q, kk, vv))
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=kv[:, None, None, :])
+        do = dout.permute(0, 3, 1, 2).contiguous()
+        lib_ms += cuda_ms(lambda: torch.autograd.grad(
+            lo, (qs, ks, vs), do, retain_graph=True), 5)
+        # least work for what this data needs: valid queries x valid keys
+        # of the frames that have keys, 5 products of 16 per (pair, head)
+        # (s, dout.v, and the dq, dk, dv updates); q, k, v, out, dout,
+        # L read and dq, dk, dv written once
+        n_pairs = (B - 1) * n_valid * m_valid * 2
+        t, by = bound(4 * B * 32 * (4 * n + 4 * m) + 4 * B * n * 2 + B * m,
+                      n_pairs * 5 * 16 * 2)
+        b_ms += t
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/flash_cross_attention_bwd.cu",
+        replaces="pose6d_tpu/ops/pallas/attention.py:30 (the library "
+                 "flash attention's dq and dkv pallas_calls)",
+        max_abs_err=err, tol=f"1e-4 * max|ref| + 1e-6 per tensor "
+                              f"(max {max(tols):.3g})",
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+        library_ms=lib_ms,
+        shapes="q (8,5120,16,2) x kv (8,2048,16,2) + the reverse, "
+               "frame 3 without keys")
+
+
+def consistency_reference(ca, cb, w):
+    """Per frame in float64 from direct differences: the sums, the
+    scale sum_i w_i (da + db), and a bound on what the f32 expansion
+    |x|^2 - 2xy + |y|^2 (the plain version, like the TPU kernel) can
+    add to the sums: its error in d^2 is at most 8 eps (|x|^2 + |y|^2),
+    which moves d = sqrt(d^2) by at most min(sqrt(that), that / d)."""
+    ref, scale, expand = [], [], []
+    for a, b, wf in zip(ca.double(), cb.double(), w.double()):
+        da, db = (torch.cdist(x, x, compute_mode="donot_use_mm_for_euclid_dist")
+                  for x in (a, b))
+        bnd = torch.zeros_like(da)
+        for x, d in ((a, da), (b, db)):
+            n2 = (x * x).sum(-1)
+            e = 8 * F32_EPS * (n2[:, None] + n2[None])
+            bnd += torch.minimum(e.sqrt(), e / d.clamp_min(1e-30))
+        ref.append(wf @ (da - db).abs())
+        scale.append(wf @ (da + db))
+        expand.append(wf @ bnd)
+    return torch.stack(ref), torch.stack(scale), torch.stack(expand)
+
+
+def check_masked_consistency(dev, g) -> dict:
+    """The PC-major consistency sums at B = 16, P = 10240: CAD-side
+    endpoints in the model frame (+-10 cm), PC-side ones ~100 cm down
+    the optical axis, half of them consistent, 70 % of the rows live."""
+    from pose6d_tpu_torch.ops import kernels as K
+    B, P = BATCH, 5 * 2048
+    ca = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+    rot = torch.linalg.qr(torch.randn((3, 3), device=dev, generator=g))[0]
+    cb = ca @ rot.T + torch.tensor([0.0, 0.0, 100.0], device=dev)
+    noise = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+    cb = torch.where(torch.rand((B, P, 1), device=dev, generator=g) < 0.5,
+                     cb + 0.05 * noise, cb + noise)
+    w = (torch.rand((B, P), device=dev, generator=g) < 0.7).float()
+    out = K.masked_consistency_sum(ca, cb, w)
+    plain = K.masked_consistency_sum_plain(ca, cb, w)
+    ref, scale, expand = consistency_reference(ca, cb, w)
+    # the kernel's direct differences against float64: f32 rounding of
+    # each distance and of sums of ~7000 terms, 2e-5 of sum w (da + db)
+    err_direct = (out.double() - ref).abs()
+    if not bool((err_direct <= 2e-5 * scale).all()):
+        raise AssertionError("masked_consistency_sum disagrees with float64")
+    # against the plain version: the expansion's bound on top of that
+    err = (out - plain).abs()
+    tol = expand + 4e-5 * scale
+    if not bool((err.double() <= tol).all()):
+        raise AssertionError("masked_consistency_sum disagrees with its "
+                             "plain version beyond the expansion's error")
+    n_pairs = float(w.sum().item()) * P
+    # per live (row, column) pair: 6 differences, 2 x (mul + 2 FMA),
+    # 2 sqrt, a difference, an abs and one FMA: 22 operations
+    b_ms, by = bound(4 * B * P * (3 + 3 + 1 + 1), 22 * n_pairs)
+
+    def library():
+        da = torch.cdist(ca, ca)
+        db = torch.cdist(cb, cb)
+        return torch.einsum("bi,bij->bj", w, (da - db).abs_())
+
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/masked_consistency_sum.cu",
+        replaces="pose6d_tpu/ops/pallas/consistency.py:136",
+        max_abs_err=err.max().item(),
+        tol="the f32 expansion's bound (min(sqrt(e), e/d) per term, "
+            "e = 8 eps (|x|^2+|y|^2)) + 4e-5 * sum w (da + db)",
+        max_rel_err_vs_float64=(err_direct / ref.clamp_min(1e-30)
+                                ).max().item(),
+        max_tol_margin=(err.double() / tol).max().item(),
+        ms=cuda_ms(lambda: K.masked_consistency_sum(ca, cb, w), 10),
+        plain_ms=cuda_ms(lambda: K.masked_consistency_sum_plain(ca, cb, w),
+                         2),
+        bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 2),
+        shapes="ca, cb (16,10240,3), w (16,10240)")
 
 
 def load_frames():
@@ -223,7 +395,7 @@ def serve(frames, model, dev):
     frames and draws through the port on the CPU. Returns the launch
     counts of the card's run."""
     from pose6d_tpu_torch.api import Predictor
-    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.ops.kernels import reset_launches
     bank = {f["obj"]: f["cad_ops"] for f in frames}
     rng = np.random.default_rng(0)
     draws = {f["obj"]: rng.random((256, 512, 3), dtype=np.float32)
@@ -251,9 +423,7 @@ def serve(frames, model, dev):
         emit("request", device="cuda", obj=f["obj"], draws="generator",
              rot_err_deg=rot_deg(out["R"], f["R_gt"]),
              n_trials=int(out["n_trials"]))
-    counts = dict(LAUNCHES)
-    if not all(counts.values()):
-        raise AssertionError(f"a kernel was not launched: {counts}")
+    counts = launched(PATH_KERNELS["serve"], "serve")
     emit("profile", obj=frames[0]["obj"], **profile_request(pred, frames[0]))
 
     cpu_model = type(model)(model.cfg)
@@ -398,6 +568,301 @@ def batch_throughput(frames, model, dev, gpu_line: str):
          note="not comparable with bench.py (other recipe and hardware)")
 
 
+def stack_frames(frames, picks, dev):
+    """The picked frames' operators padded and stacked on `dev`, and
+    their CAD diameters."""
+    from pose6d_tpu_torch.api import pad_operators
+    from pose6d_tpu_torch.ops.masking import V_CAD, V_PC
+
+    def stack(key, v):
+        parts = [pad_operators(frames[i][key], v, dev) for i in picks]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    return (stack("cad_ops", V_CAD), stack("pc_ops", V_PC),
+            torch.tensor([frames[i]["diam"] for i in picks], device=dev))
+
+
+def pc_major_filter(frames, model, dev, gpu_line: str) -> dict:
+    """One B = 16 spatial-filter call in the PC-major layout (the
+    masked_consistency_sum kernel) against the rank-major one on the same
+    input. Pair indices must be equal; survivor masks may differ only on
+    pairs whose consistency mean, in either layout, lies within 0.1 % of
+    a pruning threshold in some round (the two sum in other orders, and
+    the PC-major kernel takes direct differences where the rank-major
+    path reads an expanded distance table). Returns the PC-major call's
+    launch counts."""
+    from pose6d_tpu_torch.ops.kernels import reset_launches
+    from pose6d_tpu_torch.solvers import spatial_filtering_fmap2pointmap
+    from pose6d_tpu_torch.solvers.fmap2pointmap import TAUS
+    cad, pc, diam = stack_frames(frames, [i % 2 for i in range(BATCH)], dev)
+    nf = model.cfg.n_fmap
+    with torch.inference_mode():
+        C = model(cad, pc)["C"]
+        args = (C, cad["evecs"][..., :nf], pc["evecs"][..., :nf], cad["xyz"],
+                pc["xyz"], cad["valid"], pc["valid"], diam)
+        runs, ms = {}, {}
+        for rank_major in (False, True):
+            spatial_filtering_fmap2pointmap(*args, rank_major=rank_major)
+            if not rank_major:
+                reset_launches()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs[rank_major] = spatial_filtering_fmap2pointmap(
+                *args, rank_major=rank_major, return_means=True)
+            end.record()
+            torch.cuda.synchronize()
+            ms["rank_major" if rank_major else "pc_major"] = \
+                start.elapsed_time(end)
+            if not rank_major:
+                counts = launched(PATH_KERNELS["pc_major_filter"],
+                                  "pc_major_filter")
+    (p_pc, v_pc, m_pc), (p_rm, v_rm, m_rm) = runs[False], runs[True]
+    if not torch.equal(p_pc, p_rm):
+        raise AssertionError("PC-major and rank-major pair indices differ")
+    # round r's thresholds: TAUS[r] for the plain rounds, the last two
+    # (tight, loose fallback) both for the final one
+    rounds = [TAUS[r:r + 1] for r in range(len(TAUS) - 2)] + [TAUS[-2:]]
+    near = torch.zeros_like(v_pc)
+    for means in (m_pc, m_rm):
+        for m, taus in zip(means, rounds):
+            for tau in taus:
+                thr = tau * diam[:, None]
+                near |= (m - thr).abs() <= 1e-3 * thr
+    flips = v_pc != v_rm
+    if bool((flips & ~near).any()):
+        raise AssertionError(f"{int((flips & ~near).sum())} survivor flips "
+                             "away from every threshold")
+    d0 = ((m_pc[0] - m_rm[0]).abs() / (TAUS[0] * diam[:, None]))
+    emit("pc_major_filter", batch=BATCH, pairs=int(p_pc.shape[-1]),
+         survivors_pc_major=int(v_pc.sum()), survivors_rank_major=int(
+             v_rm.sum()), flips=int(flips.sum()), near_threshold=int(
+             near.sum()), tol="0.1 % of the threshold",
+         round0_max_mean_diff_frac_threshold=float(d0.max()),
+         ms=ms, gpu=gpu_line, launches=counts)
+    return counts
+
+
+def training_items(frames) -> list:
+    """The in-memory training set: each committed frame with its GT
+    pairs at 0.05 diam from its GT pose, four copies of each, so one
+    batch of 8 holds four of both."""
+    from pose6d_tpu_torch.data.dataset import gt_object
+    items = []
+    for f in frames:
+        obj = gt_object(f["cad_ops"]["xyz"], f["pc_ops"]["xyz"], f["R_gt"],
+                        f["t_gt"], f["diam"], f["obj"])
+        items += [(f["cad_ops"], f["pc_ops"], obj)] * 4
+    return items
+
+
+def train_check(items, dev) -> None:
+    """One train step on the card against the same step on the port's
+    CPU run: params from weights/synth_seen.msgpack, one frame of each
+    object, the same draws (augmentation on)."""
+    from pose6d_tpu_torch.data.pipeline import collate, make_sample, to_device
+    from pose6d_tpu_torch.models import DPFMNet, load_flax_checkpoint
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.train.train_step import TrainStep
+    batch = collate([make_sample(*items[i], rng=np.random.default_rng(i))
+                     for i in (0, 4)])
+    lr = 5e-4
+    res = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = load_flax_checkpoint(ROOT / "weights" / "synth_seen.msgpack",
+                                     DPFMNet()).to(d)
+        ts = TrainStep(model, lr=lr, augment_angle=math.radians(15.0),
+                       augment_trans=1.0)
+        b = to_device(batch, d)
+        draws = ts.draw(to_device(batch, "cpu"),
+                        torch.Generator().manual_seed(0))
+        draws = {k: v.to(d) for k, v in draws.items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _, _ = ts.forward_loss(b, draws)
+        names = [n for n, _ in model.named_parameters()]
+        grads = ts.backward(loss)
+        # a copy: the clip scales the gradients in place (and .cpu() of
+        # a CPU tensor is the tensor itself)
+        g = {n: t.detach().to("cpu", copy=True) for n, t in zip(names, grads)}
+        norm = ts.apply_update(grads, 0)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res[name] = dict(loss=loss.item(), norm=norm.item(), grads=g,
+                         params={n: p.detach().to("cpu", copy=True)
+                                 for n, p in model.named_parameters()},
+                         s=time.perf_counter() - t0, launches=dict(LAUNCHES))
+    cpu, gpu = res["cpu"], res["cuda"]
+    # f32 on both; the regularized 30x30 fmap solve amplifies summation
+    # order (as in tests/test_torch_train.py against the JAX step)
+    if not abs(gpu["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"]):
+        raise AssertionError(f"train loss {gpu['loss']} vs {cpu['loss']}")
+    if not abs(gpu["norm"] - cpu["norm"]) <= 1e-3 * cpu["norm"]:
+        raise AssertionError(f"grad norm {gpu['norm']} vs {cpu['norm']}")
+    # Gradient leaves: 1e-2 of the leaf's max plus 1e-4 of the step's
+    # largest gradient. At full width each gradient sums over 5120 CAD
+    # and 2048 PC points (and 2 x 5120 x 2048 attention pairs) in another
+    # order; with the plain attention on the card the worst leaf sits at
+    # ~4e-3 of its max. The floor is for leaves that are 0 in exact
+    # arithmetic: proj_k's bias (a softmax does not see a shift of all
+    # its keys) comes out as ~5e-5 of the largest gradient through the
+    # backward kernel, which takes D_i = dout_i . out_i from the
+    # forward's output rather than from its own probabilities
+    gmax = max(v.abs().max().item() for v in cpu["grads"].values())
+    ratios, dead = [], []
+    for name, gc in cpu["grads"].items():
+        gg = gpu["grads"][name]
+        tol = 1e-2 * gc.abs().max().item() + 1e-4 * gmax
+        err = (gg - gc).abs().max().item()
+        ratios.append((err / tol, name, err, gc.abs().max().item(),
+                       gg.abs().max().item()))
+        if gc.any() and not gg.any():
+            dead.append(name)
+        # one RMSprop step moves each parameter by ~10 lr sign(g): equal
+        # where |g| is ten times the gradient tolerance, at most 20 lr
+        # apart elsewhere (a sign flip of a gradient that is noise, as
+        # proj_k's bias gradient is: 0 in exact arithmetic)
+        clear = gc.abs() > 10 * tol
+        dp = (gpu["params"][name] - cpu["params"][name]).abs()
+        if not (dp[clear].max().item() <= 1e-5 if clear.any() else True) \
+                or not dp.max().item() <= 20 * lr:
+            raise AssertionError(f"{name}: params apart by {dp.max()}")
+    if dead:
+        raise AssertionError(f"no gradient on the card for {dead}")
+    # (error / tolerance, leaf, error, max |g| on the CPU, on the card)
+    ratios.sort(reverse=True)
+    worst = ratios[0][0]
+    if not worst <= 1.0:
+        raise AssertionError(f"gradients apart by {worst} x the tolerance: "
+                             f"{ratios[:3]}")
+    launched(("flash_cross_attention", "flash_cross_attention_backward"),
+             "train_check")
+    emit("train_check", loss=[cpu["loss"], gpu["loss"]],
+         grad_norm=[cpu["norm"], gpu["norm"]], leaves=len(cpu["grads"]),
+         worst_grad_err_over_tol=worst, worst_leaves=ratios[:3],
+         tol="loss 1e-4 rel, grad norm 1e-3 rel, each gradient leaf "
+             "1e-2 of its max + 1e-4 of the largest; params 1e-5 where "
+             "|g| > 10x that, else 20 lr",
+         attention_grad_norms={n: float(v.norm()) for n, v in
+                               gpu["grads"].items() if ".attn." in n},
+         cpu_s=cpu["s"], cuda_s=gpu["s"], cuda_launches=gpu["launches"])
+
+
+def train_run(items, dev, gpu_line: str) -> dict:
+    """The port's train() on the card at full width from a flax-like
+    init, then the step's time split into its stages and a profiled
+    step. Returns the launch counts of the train() run."""
+    import shutil
+
+    from pose6d_tpu_torch.config import Config
+    from pose6d_tpu_torch.data.pipeline import collate, make_sample, to_device
+    from pose6d_tpu_torch.models import DPFMNet, load_flax_checkpoint
+    from pose6d_tpu_torch.ops.kernels import reset_launches
+    from pose6d_tpu_torch.train.loop import train
+    from pose6d_tpu_torch.train.train_step import TrainStep
+    steps = 20
+    cfg = Config()
+    cfg.logging_dir = str(ROOT / "build" / "chip_smoke_train")
+    shutil.rmtree(cfg.logging_dir, ignore_errors=True)
+    cfg.train.batch_size = TRAIN_BATCH
+    cfg.train.epochs = steps
+    cfg.train.log_ir = True
+    cfg.train.log_interval = 5
+    cfg.train.checkpoint_interval = 10
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(cfg, dataset=items, max_steps=steps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launched(PATH_KERNELS["train"], "train")
+    (run,) = Path(cfg.logging_dir).iterdir()
+    recs = [json.loads(ln) for ln in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "step" in r]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    back = load_flax_checkpoint(run / "params_latest.msgpack", DPFMNet())
+    for name, t in state.model.state_dict().items():
+        if not torch.equal(back.state_dict()[name], t.cpu()):
+            raise AssertionError(f"params_latest.msgpack differs at {name}")
+    emit("train", steps=steps, batch=TRAIN_BATCH, losses=losses,
+         mean_first5=first, mean_last5=last,
+         IR=[r["IR"] for r in recs if "IR" in r], wall_s=wall,
+         wall_ms_per_step=1e3 * wall / steps,
+         note="wall includes the host loader, checkpoints and the IR "
+              "probe; set-up included", launches=counts)
+
+    # the step alone on one batch of 8: CUDA events around each stage
+    model = state.model
+    ts = TrainStep(model, cfg.loss, lr=cfg.train.lr)
+    batch = to_device(collate([make_sample(*items[i]) for i in range(
+        TRAIN_BATCH)]), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    names = ("forward", "backward", "optimizer")
+    reps = 10
+    for _ in range(2):
+        ts(batch, 0, ts.draw(batch, gen))
+    torch.cuda.synchronize()
+    stage = dict.fromkeys(names, 0.0)
+    total = 0.0
+    for _ in range(reps):
+        draws = ts.draw(batch, gen)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _, _ = ts.forward_loss(batch, draws)
+        ev[1].record()
+        grads = ts.backward(loss)
+        ev[2].record()
+        ts.apply_update(grads, 0)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            stage[n] += ev[i].elapsed_time(ev[i + 1]) / reps
+        total += ev[0].elapsed_time(ev[3]) / reps
+    emit("train_step", batch=TRAIN_BATCH, ms_per_step=total,
+         samples_per_s=TRAIN_BATCH * 1e3 / total, stage_ms=stage,
+         gpu=gpu_line, **profile_steps(ts, batch, gen))
+    return counts
+
+
+def profile_steps(ts, batch, gen, n: int = 3) -> dict:
+    """Device time of n train steps (torch.profiler) over their wall
+    time without the profiler, and the kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ts(batch, 0, ts.draw(batch, gen))
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0)
+
+    wall_us = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    if device_us == 0:
+        return {"device_busy_share": "not measured (no device time traced)"}
+    return {"wall_ms_per_step_unprofiled": wall_us / n / 1e3,
+            "device_ms_per_step": device_us / n / 1e3,
+            "device_busy_share": device_us / wall_us,
+            "top_device_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / n / 1e3
+                for e in rows[:8]},
+            "device_launches_per_step": sum(e.count for e in rows) / n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -433,14 +898,23 @@ def main() -> int:
               "operators too (k_eig 64)")
     model = load_flax_checkpoint(ROOT / "weights" / "synth_seen.msgpack",
                                  DPFMNet()).to(dev).eval()
-    counts = serve(frames, model, dev)
+    paths = {"serve": serve(frames, model, dev)}
     batch_throughput(frames, model, dev, gpu_line)
+    paths["pc_major_filter"] = pc_major_filter(frames, model, dev, gpu_line)
+    items = training_items(frames)
+    train_check(items, dev)
+    paths["train"] = train_run(items, dev, gpu_line)
 
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [
-        {"name": name, "launches": counts[name],
-         **{k: row[k] for k in keys}} for name, row in rows.items()]}))
+    line = []
+    for name, row in rows.items():
+        by_path = {p: c[name] for p, c in paths.items()
+                   if name in PATH_KERNELS[p]}
+        line.append({"name": name, "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     **{k: row[k] for k in keys}})
+    print(json.dumps({"kernels": line}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

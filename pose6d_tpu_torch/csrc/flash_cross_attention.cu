@@ -10,6 +10,11 @@
 // A query row with no valid key returns zeros, as masked_softmax does
 // on the XLA branch.
 //
+// Optional output for training: lse (B, N, H), the log-sum-exp of the
+// scaled scores of each (query, head) row over its valid keys, -inf for
+// a row with no valid key. The backward (flash_cross_attention_bwd.cu)
+// recomputes the probabilities from it. Serving passes a null pointer.
+//
 // What bounds it on the H100: operations. At the main-path shapes one
 // call is 5120 x 2048 keys x 2 heads x (16 + 16) FMAs plus one exp per
 // score (~1.4 GFLOP) against ~1 MB of q, k, v and out; a plain
@@ -37,7 +42,8 @@ flash_cross_attention_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
                              const unsigned char* __restrict__ kv_valid,
-                             float* __restrict__ out, int n, int m, int heads,
+                             float* __restrict__ out,
+                             float* __restrict__ lse, int n, int m, int heads,
                              float scale) {
   __shared__ float ks[kTK][DIM];
   __shared__ float vs[kTK][DIM];
@@ -107,32 +113,36 @@ flash_cross_attention_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
       ob[(size_t)row * stride + (size_t)d * heads + h] = acc[d] * inv;
+    if (lse != nullptr)
+      lse[((size_t)batch * n + row) * heads + h] =
+          (run_sum > 0.f) ? run_max + logf(run_sum) : -INFINITY;
   }
 }
 
 template <int DIM>
 void launch(const float* q, const float* k, const float* v,
-            const unsigned char* valid, float* out, int batch, int n, int m,
-            int heads, float scale, cudaStream_t stream) {
+            const unsigned char* valid, float* out, float* lse, int batch,
+            int n, int m, int heads, float scale, cudaStream_t stream) {
   dim3 grid((n + kThreads - 1) / kThreads, heads, batch);
   flash_cross_attention_kernel<DIM><<<grid, kThreads, 0, stream>>>(
-      q, k, v, valid, out, n, m, heads, scale);
+      q, k, v, valid, out, lse, n, m, heads, scale);
 }
 
 }  // namespace
 
 extern "C" int flash_cross_attention_f32(const void* q, const void* k,
                                          const void* v, const void* kv_valid,
-                                         void* out, int batch, int n, int m,
-                                         int dim, int heads, float scale,
-                                         void* stream) {
+                                         void* out, void* lse, int batch,
+                                         int n, int m, int dim, int heads,
+                                         float scale, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const unsigned char* mf = static_cast<const unsigned char*>(kv_valid);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(lse);  // may be null (no lse wanted)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim != 16) return static_cast<int>(cudaErrorInvalidValue);
-  launch<16>(qf, kf, vf, mf, of, batch, n, m, heads, scale, s);
+  launch<16>(qf, kf, vf, mf, of, lf, batch, n, m, heads, scale, s);
   return static_cast<int>(cudaGetLastError());
 }

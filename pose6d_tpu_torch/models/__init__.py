@@ -1,4 +1,5 @@
 from .dpfm import DPFMConfig, DPFMNet
-from .weights import load_flax_checkpoint
+from .weights import init_like_flax, load_flax_checkpoint, save_flax_params
 
-__all__ = ["DPFMConfig", "DPFMNet", "load_flax_checkpoint"]
+__all__ = ["DPFMConfig", "DPFMNet", "init_like_flax", "load_flax_checkpoint",
+           "save_flax_params"]

@@ -3,8 +3,8 @@
 The default configuration only: attention_type="normal" and
 cross_sampling_ratio=1.0 (the other variants are not ported yet). The
 V1 x V2 attention runs through ops/kernels/attention.py: the
-hand-written online-softmax kernel on the card, its plain f32 version
-on the CPU.
+hand-written online-softmax kernel on the card (and, when autograd
+needs it, the hand-written backward), its plain f32 version on the CPU.
 """
 from __future__ import annotations
 

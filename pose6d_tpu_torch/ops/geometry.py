@@ -1,4 +1,5 @@
-"""Pairwise distances (port of pose6d_tpu/ops/geometry.py:pairwise_sqdist)."""
+"""Pairwise distances and GT correspondence masks (port of parts of
+pose6d_tpu/ops/geometry.py)."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,18 @@ def pairwise_sqdist(a, b):
     b2 = torch.sum(b * b, dim=-1, keepdim=True)
     cross = a @ b.transpose(-1, -2)
     return torch.clamp(a2 - 2.0 * cross + b2.transpose(-1, -2), min=0.0)
+
+
+def radius_correspondence_mask(cad, cad_valid, pc, pc_valid, radius):
+    """Dense boolean GT-correspondence mask (..., V1, V2): valid pairs
+    within `radius` (compared as d2 <= radius^2 in f32, as the JAX
+    function does)."""
+    r = torch.as_tensor(radius, dtype=torch.float32, device=cad.device)
+    d2 = pairwise_sqdist(cad, pc)
+    ok = cad_valid[..., :, None] & pc_valid[..., None, :]
+    return ok & (d2 <= r * r)
+
+
+def overlap_from_mask(corr_mask):
+    """overlap_12 (..., V1), overlap_21 (..., V2) from the dense mask."""
+    return corr_mask.any(-1), corr_mask.any(-2)

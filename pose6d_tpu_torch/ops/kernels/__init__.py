@@ -1,13 +1,21 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 from ._build import LAUNCHES, build_all, reset_launches
-from .attention import flash_cross_attention, flash_cross_attention_plain
+from .attention import (flash_cross_attention,
+                        flash_cross_attention_backward,
+                        flash_cross_attention_backward_plain,
+                        flash_cross_attention_plain)
 from .cdist import (masked_argmin_cdist, masked_argmin_cdist_plain,
                     masked_topk_cdist, masked_topk_cdist_plain)
 from .consistency import (consistency_sum_rank_major,
-                          consistency_sum_rank_major_plain)
+                          consistency_sum_rank_major_plain,
+                          masked_consistency_sum,
+                          masked_consistency_sum_plain)
 
 __all__ = ["LAUNCHES", "build_all", "reset_launches",
            "flash_cross_attention", "flash_cross_attention_plain",
+           "flash_cross_attention_backward",
+           "flash_cross_attention_backward_plain",
            "masked_argmin_cdist", "masked_argmin_cdist_plain",
            "masked_topk_cdist", "masked_topk_cdist_plain",
-           "consistency_sum_rank_major", "consistency_sum_rank_major_plain"]
+           "consistency_sum_rank_major", "consistency_sum_rank_major_plain",
+           "masked_consistency_sum", "masked_consistency_sum_plain"]

@@ -37,13 +37,20 @@ SOURCES = {
                                   _P]},
     "consistency_rank_major.cu": {
         "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "masked_consistency_sum.cu": {
+        "masked_consistency_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
     "flash_cross_attention.cu": {
-        "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _F, _P]},
+        "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _F, _P]},
+    "flash_cross_attention_bwd.cu": {
+        "flash_cross_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _I, _I, _I, _I, _I, _F,
+                                          _P]},
 }
 
 # launches per kernel wrapper; each wrapper adds one where it launches
-LAUNCHES = {"flash_cross_attention": 0, "consistency_sum_rank_major": 0,
+LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
+            "consistency_sum_rank_major": 0, "masked_consistency_sum": 0,
             "masked_topk_cdist": 0, "masked_argmin_cdist": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

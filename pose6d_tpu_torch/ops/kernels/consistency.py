@@ -1,9 +1,11 @@
-"""Rank-major spatial-consistency sums (kernel: csrc/consistency_rank_major.cu).
+"""Spatial-consistency sums (kernels: csrc/consistency_rank_major.cu,
+csrc/masked_consistency_sum.cu).
 
-Port of pose6d_tpu/ops/pallas/consistency.py:80
-consistency_sum_rank_major. For a CUDA tensor the wrapper launches the
-hand-written kernel; for a CPU tensor it runs the plain PyTorch version
-beside it.
+Ports of pose6d_tpu/ops/pallas/consistency.py:80
+consistency_sum_rank_major (the PC side read from a (V2, V2) table)
+and :136 masked_consistency_sum (both endpoints explicit, PC-major).
+For a CUDA tensor each wrapper launches its hand-written kernel; for a
+CPU tensor it runs the plain PyTorch version beside it.
 """
 from __future__ import annotations
 
@@ -50,4 +52,42 @@ def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
         bsz, v2, p // v2, _build.stream_ptr(w.device))
     _build.check(code, "consistency_sum_rank_major")
     _build.LAUNCHES["consistency_sum_rank_major"] += 1
+    return out
+
+
+def masked_consistency_sum_plain(ca, cb, w):
+    """sum_i w_i * | ||ca_i - ca_j|| - ||cb_i - cb_j|| | per pair j, one
+    frame at a time, distances from the |x|^2 - 2xy + |y|^2 expansion
+    as the JAX package computes them."""
+    out = []
+    for a, b, wf in zip(ca, cb, w):
+        da = torch.sqrt(pairwise_sqdist(a, a))
+        db = torch.sqrt(pairwise_sqdist(b, b))
+        out.append(wf @ torch.abs(da - db))
+    return torch.stack(out)
+
+
+def masked_consistency_sum(ca, cb, w):
+    """ca, cb (B, P, 3) f32 CAD / PC endpoints of P pairs, w (B, P) f32
+    row weights (0 for pruned rows). Returns (B, P) f32 sums."""
+    if ca.device.type == "cpu":
+        return masked_consistency_sum_plain(ca, cb, w)
+    if ca.device.type != "cuda":
+        raise ValueError(f"unsupported device {ca.device}")
+    bsz, p, c = ca.shape
+    if c != 3 or cb.shape != ca.shape or w.shape != (bsz, p) or p == 0:
+        raise ValueError(f"bad shapes ca{tuple(ca.shape)} cb{tuple(cb.shape)} "
+                         f"w{tuple(w.shape)}")
+    if any(t.dtype != torch.float32 for t in (ca, cb, w)):
+        raise TypeError("ca, cb, w must be float32")
+    if not (cb.device == w.device == ca.device):
+        raise ValueError("ca, cb, w must be on one device")
+    ca, cb, w = (t.contiguous() for t in (ca, cb, w))
+    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
+    lib = _build.library("masked_consistency_sum.cu")
+    code = lib.masked_consistency_sum_f32(
+        ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(), bsz, p,
+        _build.stream_ptr(w.device))
+    _build.check(code, "masked_consistency_sum")
+    _build.LAUNCHES["masked_consistency_sum"] += 1
     return out

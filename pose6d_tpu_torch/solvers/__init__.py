@@ -1,8 +1,9 @@
-from .fmap2pointmap import spatial_filtering_fmap2pointmap
+from .fmap2pointmap import (naive_fmap2pointmap,
+                            spatial_filtering_fmap2pointmap)
 from .icp import icp_cloud_to_model, icp_point2point
 from .kabsch import kabsch_umeyama, transform_residuals, triad_rigid
 from .ransac import ransac_pose
 
-__all__ = ["spatial_filtering_fmap2pointmap", "icp_cloud_to_model",
-           "icp_point2point", "kabsch_umeyama", "transform_residuals",
-           "triad_rigid", "ransac_pose"]
+__all__ = ["naive_fmap2pointmap", "spatial_filtering_fmap2pointmap",
+           "icp_cloud_to_model", "icp_point2point", "kabsch_umeyama",
+           "transform_residuals", "triad_rigid", "ransac_pose"]

@@ -2,22 +2,27 @@
 wrapper runs for a CPU tensor) against the JAX package's function on
 the same numpy inputs. Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them."""
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+import pose6d_tpu.models.attention as jax_attention
 from pose6d_tpu.models.attention import MultiHeadedAttention as JaxMHA
 from pose6d_tpu.ops import nn as jax_nn
 from pose6d_tpu.ops.pallas import (consistency_sum_rank_major as jax_rm,
                                    masked_argmin_cdist as jax_argmin,
                                    masked_topk_cdist as jax_topk)
 from pose6d_tpu_torch.models.attention import MultiHeadedAttention
-from pose6d_tpu_torch.models.weights import state_dict_from_flax
+from pose6d_tpu_torch.models.weights import (flax_from_state_dict,
+                                             state_dict_from_flax)
 from pose6d_tpu_torch.ops import nn as torch_nn
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
                                           flash_cross_attention,
+                                          flash_cross_attention_backward,
                                           masked_argmin_cdist,
                                           masked_topk_cdist)
 
@@ -145,6 +150,79 @@ def test_attention_module_matches_jax_xla_branch():
     # the probabilities; a few such roundings through the merge layer
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
                                atol=2e-2 * np.abs(ref).max())
+
+
+def test_attention_gradients_match_jax(monkeypatch):
+    """jax.grad of the JAX MultiHeadedAttention XLA branch (its bf16
+    casts turned into f32, in this test only) against autograd through
+    the port's module on the CPU (the plain version), over two frames:
+    one with padded queries and keys, one whose keys are all masked."""
+    proxy = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                     if not k.startswith("__")})
+    proxy.bfloat16 = jnp.float32
+    monkeypatch.setattr(jax_attention, "jnp", proxy)
+    rng = np.random.default_rng(8)
+    n, m, d_model = 64, 48, 32
+    x = rng.normal(size=(2, n, d_model)).astype(np.float32)
+    src = rng.normal(size=(2, m, d_model)).astype(np.float32)
+    ct = rng.normal(size=(2, n, d_model)).astype(np.float32)
+    x_valid = np.stack([np.arange(n) < 60, np.arange(n) < 50])
+    s_valid = np.stack([np.arange(m) < 40, np.zeros(m, bool)])
+    mod = JaxMHA(num_heads=2, d_model=d_model)
+    params = mod.init(jax.random.PRNGKey(0), x[0], src[0], src[0],
+                      x_valid[0], s_valid[0])
+
+    def jloss(p, xs, ss):
+        out = jax.vmap(lambda a, b, av, bv: mod.apply(p, a, b, b, av, bv))(
+            xs, ss, x_valid, s_valid)
+        return jnp.sum(out * ct)
+
+    gp, gx, gs = jax.grad(jloss, argnums=(0, 1, 2))(params, x, src)
+    port = MultiHeadedAttention(2, d_model)
+    port.load_state_dict(state_dict_from_flax(params["params"]))
+    tx, ts = (torch.tensor(a, requires_grad=True) for a in (x, src))
+    out = port(tx, ts, ts, torch.as_tensor(x_valid), torch.as_tensor(s_valid))
+    assert out.grad_fn is not None
+    (out * torch.as_tensor(ct)).sum().backward()
+    grads = flax_from_state_dict({k: p.grad for k, p in
+                                  port.named_parameters()})
+    pairs = [(tx.grad.numpy(), np.asarray(gx), "x"),
+             (ts.grad.numpy(), np.asarray(gs), "source")]
+    for layer, leaves in grads.items():
+        for leaf, g in leaves.items():
+            pairs.append((g, np.asarray(gp["params"][layer][leaf]),
+                          f"{layer}/{leaf}"))
+    for got, want, name in pairs:
+        # f32 on both sides, sums over <= 64 rows of O(1) terms; proj_k's
+        # bias gradient is 0 in exact arithmetic (a softmax does not see
+        # a shift of all its keys), so the floor is absolute
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max() + 1e-5,
+                                   err_msg=name)
+    # padded query rows get no gradient; nor does the key-less frame's
+    # source (its probabilities are 0 whatever the keys)
+    assert not tx.grad[0, 60:].any() and not tx.grad[1, 50:].any()
+    assert not ts.grad[0, 40:].any() and not ts.grad[1].any()
+
+
+def test_attention_backward_plain_is_autograd_of_plain():
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, s, 16, 2)).astype(
+        np.float32)) for s in (24, 20, 20))
+    valid = torch.as_tensor(rng.random((2, 20)) > 0.3)
+    valid[1] = False
+    dout = torch.as_tensor(rng.normal(size=(2, 24, 16, 2)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_cross_attention(*leaves, valid, 0.25)
+    assert out.grad_fn is not None
+    want = torch.autograd.grad(out, leaves, dout)
+    before = dict(LAUNCHES)
+    got = flash_cross_attention_backward(q, k, v, valid, 0.25, None, None,
+                                         dout)
+    assert LAUNCHES == before
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not got[1][1].any() and not got[2][1].any()
 
 
 def test_cpu_tensors_never_launch():
