@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from csrc/ (into build/), holds each
 kernel against its plain PyTorch version at the main path's shapes
-(batch 16), serves cached-mode pose requests on the two committed LM
+(batch 16; the serve path's kernels also at batch 1, the masked cdist
+kernels also on ICP's coarse shape and on edge inputs), serves cached-mode pose requests on the two committed LM
 frames through Predictor(device="cuda") and checks them against the
 port's own CPU run, then times a batch of 16 frames. Each phase prints
 one JSON line; a failure anywhere raises. The line before the last is
@@ -90,129 +91,314 @@ def bound(n_bytes: float, n_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call without the host's cost to launch it, which
+    at B = 1 can exceed the kernel's: `reps` calls captured in one CUDA
+    graph, the graph replayed three times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version on the same inputs, at the
-    main path's shapes with B = 16. Returns the rows of the kernel line."""
+    main path's shapes with B = 16, and the serve path's kernels also at
+    B = 1 (a one-frame request). Returns the rows of the kernel line."""
     from pose6d_tpu_torch.ops import kernels as K
     g = torch.Generator(device=dev).manual_seed(0)
-    B, v1, v2, k = BATCH, 5120, 2048, 5
+    v1, v2, k = 5120, 2048, 5
     rows = {}
 
-    def valid_mask(n, n_valid):
-        return torch.arange(n, device=dev).expand(B, n) < n_valid
+    def valid_mask(bsz, n, n_valid):
+        return torch.arange(n, device=dev).expand(bsz, n) < n_valid
 
     # -- kernel 1: flash cross-attention, both directions of a forward
-    scale = 16 ** -0.5
-    ms = plain_ms = lib_ms = b_ms = 0.0
-    err, by = 0.0, ""
-    for n, m, m_valid in ((v1, v2, 2000), (v2, v1, 5000)):
-        q = torch.randn((B, n, 16, 2), device=dev, generator=g)
-        kk = torch.randn((B, m, 16, 2), device=dev, generator=g)
-        vv = torch.randn((B, m, 16, 2), device=dev, generator=g)
-        kv = valid_mask(m, m_valid)
-        out = K.flash_cross_attention(q, kk, vv, kv, scale)
-        ref = K.flash_cross_attention_plain(q, kk, vv, kv, scale)
-        e = (out - ref).abs().max().item()
-        if not e <= 1e-4:   # f32 online vs two-pass softmax, |out| <~ 3
-            raise AssertionError(f"flash_cross_attention error {e}")
-        err = max(err, e)
-        ms += cuda_ms(lambda: K.flash_cross_attention(q, kk, vv, kv, scale),
-                      20)
-        plain_ms += cuda_ms(
-            lambda: K.flash_cross_attention_plain(q, kk, vv, kv, scale), 3)
-        qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous() for x in (q, kk, vv))
-        mask = kv[:, None, None, :]
-        lib_ms += cuda_ms(lambda: torch.nn.functional.
-                          scaled_dot_product_attention(qs, ks, vs,
-                                                       attn_mask=mask), 20)
-        t, by = bound(4 * B * 32 * (2 * n + 2 * m) + B * m,
-                      B * 2 * n * m_valid * 4 * 16)
-        b_ms += t
+    def flash(bsz):
+        scale = 16 ** -0.5
+        ms = plain_ms = lib_ms = b_ms = 0.0
+        err, by = 0.0, ""
+        for n, m, m_valid in ((v1, v2, 2000), (v2, v1, 5000)):
+            q = torch.randn((bsz, n, 16, 2), device=dev, generator=g)
+            kk = torch.randn((bsz, m, 16, 2), device=dev, generator=g)
+            vv = torch.randn((bsz, m, 16, 2), device=dev, generator=g)
+            kv = valid_mask(bsz, m, m_valid)
+            out = K.flash_cross_attention(q, kk, vv, kv, scale)
+            ref = K.flash_cross_attention_plain(q, kk, vv, kv, scale)
+            e = (out - ref).abs().max().item()
+            if not e <= 1e-4:   # f32 online vs two-pass softmax, |out| <~ 3
+                raise AssertionError(f"flash_cross_attention error {e}")
+            err = max(err, e)
+            ms += cuda_ms(lambda: K.flash_cross_attention(q, kk, vv, kv,
+                                                          scale), 20)
+            plain_ms += cuda_ms(
+                lambda: K.flash_cross_attention_plain(q, kk, vv, kv, scale), 3)
+            qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous()
+                          for x in (q, kk, vv))
+            mask = kv[:, None, None, :]
+            lib_ms += cuda_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(qs, ks, vs,
+                                                           attn_mask=mask), 20)
+            t, by = bound(4 * bsz * 32 * (2 * n + 2 * m) + bsz * m,
+                          bsz * 2 * n * m_valid * 4 * 16)
+            b_ms += t
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=by, library_ms=lib_ms)
+
+    f16 = flash(BATCH)
     rows["flash_cross_attention"] = dict(
         route="cuda", source="pose6d_tpu_torch/csrc/flash_cross_attention.cu",
-        replaces="pose6d_tpu/ops/pallas/attention.py:30",
-        max_abs_err=err, tol=1e-4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=by, library_ms=lib_ms,
-        shapes="q (16,5120,16,2) x kv (16,2048,16,2) + the reverse")
+        replaces="pose6d_tpu/ops/pallas/attention.py:30", tol=1e-4, **f16,
+        b1=flash(1),
+        shapes="q (16,5120,16,2) x kv (16,2048,16,2) + the reverse; b1: "
+               "the same at B = 1")
 
     # -- kernel 2: rank-major consistency sums
-    P = k * v2
-    cad = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
-    pc = torch.rand((B, v2, 3), device=dev, generator=g) * 20 - 10
     from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
-    dpc = torch.sqrt(pairwise_sqdist(pc, pc))
-    w = (torch.rand((B, P), device=dev, generator=g) < 0.7).float()
-    out = K.consistency_sum_rank_major(cad, dpc, w, v2)
-    ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
-    err = (out - ref).abs().max().item()
-    tol = 1e-4 * ref.abs().max().item()   # f32 sums of ~7k terms, any order
-    if not err <= tol:
-        raise AssertionError(f"consistency_sum_rank_major error {err} > {tol}")
-    n_pairs = float(w.sum().item()) * P
-    b_ms, by = bound(4 * B * (3 * P + P + v2 * v2 + P), 12 * n_pairs)
+    P = k * v2
+
+    def consistency(bsz):
+        cad = torch.rand((bsz, P, 3), device=dev, generator=g) * 20 - 10
+        pc = torch.rand((bsz, v2, 3), device=dev, generator=g) * 20 - 10
+        dpc = torch.sqrt(pairwise_sqdist(pc, pc))
+        w = (torch.rand((bsz, P), device=dev, generator=g) < 0.7).float()
+        out = K.consistency_sum_rank_major(cad, dpc, w, v2)
+        ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()  # f32 sums of ~7k terms, any order
+        if not err <= tol:
+            raise AssertionError(f"consistency_sum_rank_major error {err} > "
+                                 f"{tol}")
+        n_pairs = float(w.sum().item()) * P
+        b_ms, by = bound(4 * bsz * (3 * P + P + v2 * v2 + P), 12 * n_pairs)
+        return dict(
+            max_abs_err=err, tol=tol,
+            ms=cuda_ms(lambda: K.consistency_sum_rank_major(cad, dpc, w, v2),
+                       10),
+            plain_ms=cuda_ms(
+                lambda: K.consistency_sum_rank_major_plain(cad, dpc, w, v2), 2),
+            bound_ms=b_ms, bound_by=by, library_ms=None)
+
+    c16 = consistency(BATCH)
     rows["consistency_sum_rank_major"] = dict(
         route="cuda", source="pose6d_tpu_torch/csrc/consistency_rank_major.cu",
-        replaces="pose6d_tpu/ops/pallas/consistency.py:80",
-        max_abs_err=err, tol=tol,
-        ms=cuda_ms(lambda: K.consistency_sum_rank_major(cad, dpc, w, v2), 10),
-        plain_ms=cuda_ms(
-            lambda: K.consistency_sum_rank_major_plain(cad, dpc, w, v2), 2),
-        bound_ms=b_ms, bound_by=by, library_ms=None,
-        shapes="coords (16,10240,3), dpc (16,2048,2048)")
+        replaces="pose6d_tpu/ops/pallas/consistency.py:80", **c16,
+        b1=consistency(1),
+        shapes="coords (16,10240,3), dpc (16,2048,2048); b1: the same at "
+               "B = 1")
 
-    # -- kernels 3 and 4: masked top-5 (spectral) and argmin (ICP)
-    cases = (("masked_topk_cdist", 30, 5, 0.1,
-              "pose6d_tpu/ops/pallas/cdist.py:99"),
-             ("masked_argmin_cdist", 3, 1, 10.0,
-              "pose6d_tpu/ops/pallas/cdist.py:40"))
-    for name, c, kk_, spread, replaces in cases:
-        a = torch.randn((B, v2, c), device=dev, generator=g) * spread
-        b = torch.randn((B, v1, c), device=dev, generator=g) * spread
-        bv = valid_mask(v1, 5000)
-        if kk_ == 1:
-            def kern():
-                return K.masked_argmin_cdist(a, b, bv)
-
-            def plain():
-                return K.masked_argmin_cdist_plain(a, b, bv)
-
-            def library():
-                d = torch.cdist(a, b) ** 2
-                return d.masked_fill_(~bv[:, None], math.inf).min(-1)
-        else:
-            def kern():
-                return K.masked_topk_cdist(a, b, bv, kk_)
-
-            def plain():
-                return K.masked_topk_cdist_plain(a, b, bv, kk_)
-
-            def library():
-                d = torch.cdist(a, b) ** 2
-                return torch.topk(d.masked_fill_(~bv[:, None], math.inf),
-                                  kk_, largest=False)
-        (d_k, i_k), (d_p, i_p) = kern(), plain()
-        err = (d_k - d_p).abs().max().item()
-        # the |a|^2 - 2ab + |b|^2 expansion cancels to ~eps (|a|^2 + |b|^2)
-        scale = (a * a).sum(-1).max().item() + (b * b).sum(-1).max().item()
-        tol_t = 1e-5 * d_p.abs() + 16 * F32_EPS * scale
-        if not bool(((d_k - d_p).abs() <= tol_t).all()):
-            raise AssertionError(f"{name} error {err}")
-        mism = int((i_k != i_p).sum().item())
-        b_ms, by = bound(4 * B * (v2 * c + v1 * c) + B * v1 + 8 * B * v2 * kk_,
-                         2 * c * B * v2 * 5000)
-        rows[name] = dict(
-            route="cuda", source="pose6d_tpu_torch/csrc/masked_cdist.cu",
-            replaces=replaces, max_abs_err=err,
-            tol=f"1e-5*|d2| + {16 * F32_EPS * scale:.3g}",
-            index_mismatches=mism, ms=cuda_ms(kern, 20),
-            plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=by,
-            library_ms=cuda_ms(library, 5),
-            shapes=f"a (16,2048,{c}) x b (16,5120,{c}), k={kk_}")
+    rows.update(check_cdist(dev, g))
     rows["flash_cross_attention_backward"] = check_flash_backward(dev, g)
     rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
     for name, row in rows.items():
         emit("kernel_check", name=name, **row)
     return rows
+
+
+# (label, frames, b rows, valid b rows): a one-frame request, the B = 16
+# batch, and ICP's coarse target at the batch path's stride 4
+CDIST_SHAPES = (("b1", 1, 5120, 5000), ("b16", BATCH, 5120, 5000),
+                ("b16_coarse", BATCH, 1280, 1250))
+
+
+def cdist_fns(k: int):
+    """(kernel, plain, library) for k = 1 (argmin) or k = 5 (top-5),
+    each returning (d2 (B, N, k), idx (B, N, k)); the library call is
+    torch.cdist squared, masked, then min or topk."""
+    from pose6d_tpu_torch.ops import kernels as K
+
+    def kern(a, b, bv):
+        if k == 1:
+            d, i = K.masked_argmin_cdist(a, b, bv)
+            return d[..., None], i[..., None]
+        return K.masked_topk_cdist(a, b, bv, k)
+
+    def plain(a, b, bv):
+        if k == 1:
+            d, i = K.masked_argmin_cdist_plain(a, b, bv)
+            return d[..., None], i[..., None]
+        return K.masked_topk_cdist_plain(a, b, bv, k)
+
+    def library(a, b, bv):
+        d = (torch.cdist(a, b) ** 2).masked_fill_(~bv[:, None], math.inf)
+        return d.min(-1) if k == 1 else torch.topk(d, k, largest=False)
+
+    return kern, plain, library
+
+
+# (normal spread, grid step, clip) of the exact-grid inputs, by C: the
+# spectral embedding's scale for C = 30, centimetres for ICP's C = 3
+CDIST_GRIDS = {30: (0.05, 2.0 ** -10, 0.125), 3: (5.0, 2.0 ** -6, 10.0)}
+
+
+def grid_points(shape, c, dev, g):
+    """Normal draws rounded to C's grid and clipped. Every product, sum
+    and d2 of the expansion is then a multiple of step^2 below 2^24
+    steps, exact in f32 in any summation order: the kernel and the plain
+    version must agree bit for bit, exact ties included."""
+    spread, step, lim = CDIST_GRIDS[c]
+    x = torch.randn(shape, device=dev, generator=g) * spread
+    return (torch.round(x / step) * step).clamp_(-lim, lim)
+
+
+def compare_cdist(name, kern, plain, a, b, bv) -> dict:
+    """Two launches of the kernel (bit-identical) against the plain
+    version on exact-grid inputs: d2 and indices equal. Returns the
+    kernel's output and the case's numbers."""
+    (dk, ik), (dk2, ik2), (dp, ip) = kern(a, b, bv), kern(a, b, bv), \
+        plain(a, b, bv)
+    if not (torch.equal(dk, dk2) and torch.equal(ik, ik2)):
+        raise AssertionError(f"{name}: two launches differ")
+    mism = int((ik != ip).sum().item())
+    err = (dk - dp).abs().max().item()
+    if mism or err:
+        raise AssertionError(f"{name}: {mism} index mismatches, d2 {err} "
+                             "apart on exact inputs")
+    return dict(out=(dk, ik), max_abs_err=err, index_mismatches=mism)
+
+
+def real_valued_cdist(name, kern, plain, c, dev, g) -> dict:
+    """Real-valued normal draws (no grid) at B = 16, 2048 x 5120: d2
+    within the expansion's f32 error of the plain version (the two sum
+    in other orders); an index may differ only where the two columns'
+    float64 distances lie within twice that error of each other, a
+    near-tie that the two orders break differently."""
+    spread = CDIST_GRIDS[c][0]
+    a = torch.randn((BATCH, 2048, c), device=dev, generator=g) * spread
+    b = torch.randn((BATCH, 5120, c), device=dev, generator=g) * spread
+    bv = torch.arange(5120, device=dev).expand(BATCH, 5120) < 5000
+    (dk, ik), (dp, ip) = kern(a, b, bv), plain(a, b, bv)
+    # the |a|^2 - 2ab + |b|^2 expansion cancels to ~eps (|a|^2 + |b|^2)
+    scale = (a * a).sum(-1).max().item() + (b * b).sum(-1).max().item()
+    tol = 1e-5 * dp.abs() + 16 * F32_EPS * scale
+    if not bool(((dk - dp).abs() <= tol).all()):
+        raise AssertionError(f"{name} real-valued: d2 beyond tolerance")
+    swap = ik != ip
+    fr, row, _ = torch.nonzero(swap, as_tuple=True)
+
+    def d64(idx):
+        return ((a[fr, row].double() - b[fr, idx.long()].double()) ** 2
+                ).sum(-1)
+
+    gap = (d64(ik[swap]) - d64(ip[swap])).abs()
+    unexplained = int((gap > 2 * tol[swap].double()).sum().item())
+    if unexplained:
+        raise AssertionError(f"{name} real-valued: {unexplained} index "
+                             "mismatches beyond a near-tie")
+    return dict(max_abs_err=(dk - dp).abs().max().item(),
+                tol=f"1e-5*|d2| + {16 * F32_EPS * scale:.3g}",
+                index_mismatches=unexplained,
+                near_tie_swaps=int(swap.sum().item()),
+                shape=f"a (16,2048,{c}) x b (16,5120,{c}), normal, "
+                      f"5000 valid")
+
+
+def check_cdist(dev, g) -> dict:
+    """Kernels 3 and 4, the masked top-5 (spectral candidates, C = 30)
+    and the masked argmin (ICP, C = 3): at the three CDIST_SHAPES and
+    on edge inputs, on exact-grid inputs, each held to the plain version
+    bit for bit (0 index mismatches) with two launches bit-identical;
+    and once on real-valued inputs, within the f32 expansion's error."""
+    rows = {}
+    n = 2048
+    for name, c, k, replaces in (
+            ("masked_topk_cdist", 30, 5, "pose6d_tpu/ops/pallas/cdist.py:99"),
+            ("masked_argmin_cdist", 3, 1, "pose6d_tpu/ops/pallas/cdist.py:40")):
+        kern, plain, library = cdist_fns(k)
+        shapes = {}
+        for label, bsz, m, m_valid in CDIST_SHAPES:
+            a = grid_points((bsz, n, c), c, dev, g)
+            b = grid_points((bsz, m, c), c, dev, g)
+            bv = torch.arange(m, device=dev).expand(bsz, m) < m_valid
+            res = compare_cdist(f"{name} {label}", kern, plain, a, b, bv)
+            del res["out"]
+            b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m
+                             + 8 * bsz * n * k, 2 * c * bsz * n * m_valid)
+            shapes[label] = dict(
+                res, ms=graph_ms(lambda: kern(a, b, bv)),
+                call_ms=cuda_ms(lambda: kern(a, b, bv), 20),
+                plain_ms=cuda_ms(lambda: plain(a, b, bv), 3),
+                library_ms=graph_ms(lambda: library(a, b, bv), 5),
+                library_call_ms=cuda_ms(lambda: library(a, b, bv), 5),
+                bound_ms=b_ms, bound_by=by,
+                shape=f"a ({bsz},{n},{c}) x b ({bsz},{m},{c}), "
+                      f"{m_valid} valid")
+        edges = cdist_edges(name, kern, plain, c, dev, g)
+        real = real_valued_cdist(name, kern, plain, c, dev, g)
+        main = shapes["b16"]
+        rows[name] = dict(
+            route="cuda", source="pose6d_tpu_torch/csrc/masked_cdist.cu",
+            replaces=replaces, max_abs_err=real["max_abs_err"],
+            tol="exact-grid cases: equal d2 and indices; real-valued: "
+                + real["tol"],
+            index_mismatches=sum(r["index_mismatches"] for r in
+                                 (*shapes.values(), edges, real)),
+            **{key: main[key] for key in ("ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+            b1={key: shapes["b1"][key] for key in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_call_ms")},
+            by_shape=shapes, edges=edges, real_valued=real,
+            shapes=f"a (16,2048,{c}) x b (16,5120,{c}), k={k}; by_shape: "
+                   "B = 1, B = 16, and B = 16 x 1280 b rows",
+            timing="ms and library_ms: device time per call (calls replayed "
+                   "as a CUDA graph); call_ms: back-to-back calls from the "
+                   "host, launch cost included")
+    return rows
+
+
+def cdist_edges(name, kern, plain, c, dev, g) -> dict:
+    """Three frames of 2000 queries (a multiple of no tile) x 5120 b
+    rows on the exact grid: frame 0 with exact ties (adjacent equal rows
+    among the first 64, and every row equal to the one 2560 later:
+    across the column segments that a few frames get), frame 1 with 3
+    valid columns in three segments, frame 2 with none."""
+    n, m, half = 2000, 5120, 2560
+    a = grid_points((3, n, c), c, dev, g)
+    b = grid_points((3, m, c), c, dev, g)
+    b[0, 1:64:2] = b[0, 0:64:2]
+    b[0, half:] = b[0, :half]
+    bv = torch.ones((3, m), dtype=torch.bool, device=dev)
+    bv[1] = False
+    bv[1, [7, 2600, 5100]] = True
+    bv[2] = False
+    res = compare_cdist(f"{name} edges", kern, plain, a, b, bv)
+    d2, idx = res.pop("out")
+    k = idx.shape[-1]
+    # frame 0: a later twin is taken only after its (valid) earlier one
+    i0 = idx[0]
+    twin = torch.where(i0 >= half, i0 - half,
+                       torch.where((i0 < 64) & (i0 % 2 == 1), i0 - 1, -1))
+    late = 0
+    for s in range(k):
+        has = twin[:, s] >= 0
+        seen = (i0[:, :s] == twin[:, s:s + 1]).any(-1)
+        late += int((has & ~seen).sum().item())
+    fill = (d2[2] == 1e9).all() and (idx[2] == 0).all()
+    if k > 3:
+        fill = fill and (d2[1, :, 3:] == 1e9).all() and \
+            (idx[1, :, 3:] == 0).all()
+    if late or not bool(fill):
+        raise AssertionError(f"{name} edges: {late} later twins first, "
+                             f"fill ok {bool(fill)}")
+    return dict(res, later_twin_first=late,
+                shape=f"a (3,{n},{c}) x b (3,{m},{c}): ties / 3 valid / none")
 
 
 def check_flash_backward(dev, g) -> dict:
@@ -425,6 +611,7 @@ def serve(frames, model, dev):
              n_trials=int(out["n_trials"]))
     counts = launched(PATH_KERNELS["serve"], "serve")
     emit("profile", obj=frames[0]["obj"], **profile_request(pred, frames[0]))
+    emit("eigh_sync", gpu=gpu_name_and_limit(), **eigh_sync_probe(dev))
 
     cpu_model = type(model)(model.cfg)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
@@ -510,6 +697,8 @@ def profile_request(pred, frame) -> dict:
         profiled_us = three()
     # device-side rows only (kernels, memcpy, memset): the host ops that
     # launched them carry the same time again
+    syncs = {e.key: e.count / 3 for e in prof.key_averages()
+             if e.key in SYNC_CALLS}
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -523,7 +712,54 @@ def profile_request(pred, frame) -> dict:
             "device_busy_share": device_us / wall_us,
             "top_device_ms_per_request": {
                 e.key[:60]: e.self_device_time_total / 3e3 for e in rows[:8]},
-            "device_launches_per_request": sum(e.count for e in rows) / 3}
+            "device_launches_per_request": sum(e.count for e in rows) / 3,
+            "host_sync_calls_per_request": syncs}
+
+
+# CUDA runtime calls that can make the host wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+
+
+def eigh_sync_probe(dev) -> dict:
+    """Whether the batched 4x4 torch.linalg.eigh of Kabsch (one call per
+    ICP iteration) makes the host wait for the device: the synchronising
+    runtime calls of one call under torch.profiler, and the host time
+    of one call queued behind three 4096^3 f32 products (a call that
+    waits returns after them; a pure launch returns at once)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pose6d_tpu_torch.solvers.kabsch import kabsch_umeyama
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((BATCH, 4, 4), device=dev, generator=g)
+    sym = x + x.mT
+    src = torch.randn((BATCH, 2048, 3), device=dev, generator=g)
+    w = torch.ones((BATCH, 2048), device=dev)
+    torch.linalg.eigh(sym)
+    kabsch_umeyama(src, src, w)
+    torch.cuda.synchronize()
+    out = {}
+    for label, fn in (("eigh", lambda: torch.linalg.eigh(sym)),
+                      ("kabsch_umeyama", lambda: kabsch_umeyama(src, src, w))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key in SYNC_CALLS}
+        big = torch.randn((4096, 4096), device=dev, generator=g)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            big @ big
+        end.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out[label] = {"sync_calls": calls, "host_ms_behind_queue": host_ms,
+                      "queued_device_ms": start.elapsed_time(end)}
+    return out
 
 
 def batch_throughput(frames, model, dev, gpu_line: str):
@@ -913,7 +1149,8 @@ def main() -> int:
                    if name in PATH_KERNELS[p]}
         line.append({"name": name, "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
-                     **{k: row[k] for k in keys}})
+                     **{k: row[k] for k in keys},
+                     **{k: row[k] for k in ("b1", "call_ms") if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

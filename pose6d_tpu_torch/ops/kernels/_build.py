@@ -29,12 +29,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # source file -> {C function: argtypes}; c_void_p for pointers and the
-# stream (a bare int would be cut to 32 bits), c_int / c_float for scalars
+# stream (a bare int would be cut to 32 bits), c_int / c_float for scalars,
+# c_longlong for strides
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES = {
     "masked_cdist.cu": {
-        "masked_topk_cdist_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _P]},
+        "masked_topk_cdist_splits": [_I, _I, _I, _I, _I],
+        "masked_topk_cdist_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _L, _L, _L, _L, _L, _P]},
     "consistency_rank_major.cu": {
         "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "masked_consistency_sum.cu": {

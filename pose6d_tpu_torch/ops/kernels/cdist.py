@@ -9,8 +9,9 @@ that the k-pass returns when a row has fewer than k valid columns.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-import torch.nn.functional as F
 
 from ..geometry import pairwise_sqdist
 from ..masking import BIG
@@ -40,9 +41,18 @@ def masked_argmin_cdist_plain(a, b, b_valid):
     return d2.min(dim=-1).values, torch.argmin(d2, dim=-1).to(torch.int32)
 
 
-def _launch(a, b, b_valid, k: int):
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     """Kernel launch: a (B, N, C), b (B, M, C) f32, b_valid (B, M) bool
-    on one CUDA device -> (d2 (B, N, k), idx (B, N, k) int32)."""
+    on one CUDA device -> (d2 (B, N, k), idx (B, N, k) int32), or
+    (B, N) each for k = 1 with squeeze. The
+    kernel reads a and b through their batch and row strides and pads
+    the features itself, so a slice such as evecs[..., :30] is not
+    copied; a tensor whose last dimension is strided is."""
     if a.dim() != 3 or b.dim() != 3 or b_valid.shape != b.shape[:2]:
         raise ValueError(f"bad shapes a{tuple(a.shape)} b{tuple(b.shape)} "
                          f"b_valid{tuple(b_valid.shape)}")
@@ -57,16 +67,27 @@ def _launch(a, b, b_valid, k: int):
     m = b.shape[1]
     if c > 32 or k not in (1, 5) or n == 0 or m == 0:
         raise ValueError(f"kernel takes C <= 32, k in (1, 5): C={c} k={k}")
-    cp = 4 if c <= 4 else 32   # zero feature columns change no distance
-    a_p = F.pad(a, (0, cp - c)).contiguous()
-    b_p = F.pad(b, (0, cp - c)).contiguous()
-    valid = b_valid.contiguous()
-    d2 = torch.empty((bsz, n, k), dtype=torch.float32, device=a.device)
-    idx = torch.empty((bsz, n, k), dtype=torch.int32, device=a.device)
+    a, b, valid = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (a, b, b_valid))
     lib = _build.library("masked_cdist.cu")
+    splits = lib.masked_topk_cdist_splits(bsz, n, m, c,
+                                          _sm_count(a.device.index))
+    shape = (bsz, n) if squeeze else (bsz, n, k)
+    d2 = torch.empty(shape, dtype=torch.float32, device=a.device)
+    idx = torch.empty(shape, dtype=torch.int32, device=a.device)
+    # partial lists of the column segments (merged by the kernel's
+    # second pass), only when the columns are split across blocks
+    part_d2 = part_idx = None
+    if splits > 1:
+        part_d2 = torch.empty((bsz, splits, n, k), dtype=torch.float32,
+                              device=a.device)
+        part_idx = torch.empty_like(part_d2, dtype=torch.int32)
     code = lib.masked_topk_cdist_f32(
-        a_p.data_ptr(), b_p.data_ptr(), valid.data_ptr(), d2.data_ptr(),
-        idx.data_ptr(), bsz, n, m, cp, k, _build.stream_ptr(a.device))
+        a.data_ptr(), b.data_ptr(), valid.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), None if part_d2 is None else part_d2.data_ptr(),
+        None if part_idx is None else part_idx.data_ptr(), bsz, n, m, c, k,
+        splits, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+        valid.stride(0), _build.stream_ptr(a.device))
     _build.check(code, "masked_topk_cdist")
     return d2, idx
 
@@ -90,6 +111,6 @@ def masked_argmin_cdist(a, b, b_valid):
         return masked_argmin_cdist_plain(a, b, b_valid)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    d2, idx = _launch(a, b, b_valid, 1)
+    out = _launch(a, b, b_valid, 1, squeeze=True)
     _build.LAUNCHES["masked_argmin_cdist"] += 1
-    return d2[..., 0], idx[..., 0]
+    return out

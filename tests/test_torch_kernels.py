@@ -84,6 +84,91 @@ def test_topk_valid_matches_jax_kpass(n_valid):
         assert (td[0, :, n_valid:] == 1e9).all()
 
 
+def _tie_inputs(seed, n, m, c, n_valid):
+    """Every b row has an exact copy m/2 columns later, and the first 16
+    rows come in adjacent equal pairs: exact d2 ties, which the kernel's
+    column split puts in different lanes, segments and blocks."""
+    a, b, valid = _cdist_inputs(seed, n, m, c, n_valid)
+    b[1:16:2] = b[0:16:2]
+    b[m // 2:] = b[:m // 2]
+    return a, b, valid
+
+
+def _jax_cdist(kernel, ref, a, b, valid):
+    """The JAX package's (d2 (N, k), idx (N, k)) through the Pallas
+    kernel in interpret mode or through the XLA path of ops/nn.py."""
+    a, b, valid = jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid)
+    if kernel == "argmin":
+        d, i = (jax_argmin(a, b, valid, block_n=128, interpret=True)
+                if ref == "pallas" else jax_nn.nearest_valid(a, b, valid))
+        return np.asarray(d)[:, None], np.asarray(i)[:, None]
+    d, i = (jax_topk(a, b, valid, k=5, block_n=128, interpret=True)
+            if ref == "pallas" else jax_nn.topk_valid(a, b, valid, k=5))
+    return np.asarray(d), np.asarray(i)
+
+
+def _port_cdist(kernel, a, b, valid):
+    if kernel == "argmin":
+        d, i = masked_argmin_cdist(a, b, valid)
+        return d[..., None], i[..., None]
+    return masked_topk_cdist(a, b, valid, k=5)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "xla"])
+@pytest.mark.parametrize("kernel", ["argmin", "topk"])
+def test_exact_ties_go_to_lower_index(kernel, ref):
+    c = 3 if kernel == "argmin" else 30
+    m = 96
+    a, b, valid = _tie_inputs(10, 128, m, c, 80)
+    jd, ji = _jax_cdist(kernel, ref, a, b, valid)
+    td, ti = _port_cdist(kernel, _t(a), _t(b), _t(valid))
+    td, ti = td[0].numpy(), ti[0].numpy()
+    # indices exact (equal rows give bit-equal d2 on both sides, and the
+    # distinct rows are well separated); d2 to f32 summation order
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-4)
+    # the later copy of a column is taken only after its valid twin
+    twin = np.where(ti >= m // 2, ti - m // 2, -1)
+    for r, s in zip(*np.nonzero((twin >= 0) & valid[np.maximum(twin, 0)])):
+        assert twin[r, s] in ti[r, :s], (r, s, ti[r])
+    pair = (ti < 16) & (ti % 2 == 1) & valid[np.maximum(ti - 1, 0)]
+    for r, s in zip(*np.nonzero(pair)):
+        assert ti[r, s] - 1 in ti[r, :s], (r, s, ti[r])
+
+
+@pytest.mark.parametrize("kernel", ["argmin", "topk"])
+def test_row_without_valid_column_matches_xla(kernel):
+    """A frame with no valid column, against the XLA path only: the
+    Pallas kernel adds +BIG to the expansion instead of replacing it, so
+    its d2 there is 1e9 + |a - b|^2 rounded in f32 and its index is the
+    nearest masked column, not the (1e9, 0) that the XLA k-pass and the
+    port return."""
+    c = 3 if kernel == "argmin" else 30
+    a, b, valid = _cdist_inputs(11, 64, 48, c, 0)
+    jd, ji = _jax_cdist(kernel, "xla", a, b, valid)
+    td, ti = _port_cdist(kernel, _t(a), _t(b), _t(valid))
+    # exact: no distance enters, every slot is the fill
+    np.testing.assert_array_equal(ti[0].numpy(), ji)
+    np.testing.assert_array_equal(td[0].numpy(), jd)
+    assert (td == 1e9).all() and (ti == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["argmin", "topk"])
+def test_batched_frames_match_per_frame_jax(kernel):
+    """Three frames in one call with 40, 3 and 0 valid columns, against
+    one call of the JAX XLA path per frame."""
+    c = 3 if kernel == "argmin" else 30
+    frames = [_cdist_inputs(12 + f, 64, 48, c, nv)
+              for f, nv in enumerate((40, 3, 0))]
+    a, b, valid = (torch.as_tensor(np.stack(x)) for x in zip(*frames))
+    td, ti = _port_cdist(kernel, a, b, valid)
+    for f, (fa, fb, fv) in enumerate(frames):
+        jd, ji = _jax_cdist(kernel, "xla", fa, fb, fv)
+        np.testing.assert_array_equal(ti[f].numpy(), ji)
+        # the 1e9 fill is exact; real distances to f32 summation order
+        np.testing.assert_allclose(td[f].numpy(), jd, rtol=1e-4, atol=1e-4)
+
+
 def test_nearest_valid_matches_jax():
     a, b, valid = _cdist_inputs(3, 100, 80, 3, 60)
     jd, ji = jax_nn.nearest_valid(jnp.asarray(a), jnp.asarray(b),
