@@ -4,10 +4,12 @@
 
 Builds the port's CUDA kernels from csrc/ (into build/), holds each
 kernel against its plain PyTorch version at the main path's shapes
-(batch 16; the serve path's kernels also at batch 1, the masked cdist
-kernels also on ICP's coarse shape and on edge inputs), serves cached-mode pose requests on the two committed LM
-frames through Predictor(device="cuda") and checks them against the
-port's own CPU run, then times a batch of 16 frames. Each phase prints
+(batch 16; the serve path's kernels also at batch 1 and on edge inputs,
+the masked cdist kernels also on ICP's coarse shape) and counts the
+instructions of the issue-bound kernels' inner loops, serves cached-mode
+pose requests on the two committed LM frames through
+Predictor(device="cuda") and checks them against the port's own CPU run,
+then times a batch of 16 frames and trains. Each phase prints
 one JSON line; a failure anywhere raises. The line before the last is
 the card's name and power limit (nvidia-smi); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -120,94 +122,244 @@ def check_kernels(dev) -> dict:
     """Each kernel against its plain version on the same inputs, at the
     main path's shapes with B = 16, and the serve path's kernels also at
     B = 1 (a one-frame request). Returns the rows of the kernel line."""
-    from pose6d_tpu_torch.ops import kernels as K
     g = torch.Generator(device=dev).manual_seed(0)
-    v1, v2, k = 5120, 2048, 5
-    rows = {}
-
-    def valid_mask(bsz, n, n_valid):
-        return torch.arange(n, device=dev).expand(bsz, n) < n_valid
-
-    # -- kernel 1: flash cross-attention, both directions of a forward
-    def flash(bsz):
-        scale = 16 ** -0.5
-        ms = plain_ms = lib_ms = b_ms = 0.0
-        err, by = 0.0, ""
-        for n, m, m_valid in ((v1, v2, 2000), (v2, v1, 5000)):
-            q = torch.randn((bsz, n, 16, 2), device=dev, generator=g)
-            kk = torch.randn((bsz, m, 16, 2), device=dev, generator=g)
-            vv = torch.randn((bsz, m, 16, 2), device=dev, generator=g)
-            kv = valid_mask(bsz, m, m_valid)
-            out = K.flash_cross_attention(q, kk, vv, kv, scale)
-            ref = K.flash_cross_attention_plain(q, kk, vv, kv, scale)
-            e = (out - ref).abs().max().item()
-            if not e <= 1e-4:   # f32 online vs two-pass softmax, |out| <~ 3
-                raise AssertionError(f"flash_cross_attention error {e}")
-            err = max(err, e)
-            ms += cuda_ms(lambda: K.flash_cross_attention(q, kk, vv, kv,
-                                                          scale), 20)
-            plain_ms += cuda_ms(
-                lambda: K.flash_cross_attention_plain(q, kk, vv, kv, scale), 3)
-            qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous()
-                          for x in (q, kk, vv))
-            mask = kv[:, None, None, :]
-            lib_ms += cuda_ms(lambda: torch.nn.functional.
-                              scaled_dot_product_attention(qs, ks, vs,
-                                                           attn_mask=mask), 20)
-            t, by = bound(4 * bsz * 32 * (2 * n + 2 * m) + bsz * m,
-                          bsz * 2 * n * m_valid * 4 * 16)
-            b_ms += t
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=lib_ms)
-
-    f16 = flash(BATCH)
-    rows["flash_cross_attention"] = dict(
-        route="cuda", source="pose6d_tpu_torch/csrc/flash_cross_attention.cu",
-        replaces="pose6d_tpu/ops/pallas/attention.py:30", tol=1e-4, **f16,
-        b1=flash(1),
-        shapes="q (16,5120,16,2) x kv (16,2048,16,2) + the reverse; b1: "
-               "the same at B = 1")
-
-    # -- kernel 2: rank-major consistency sums
-    from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
-    P = k * v2
-
-    def consistency(bsz):
-        cad = torch.rand((bsz, P, 3), device=dev, generator=g) * 20 - 10
-        pc = torch.rand((bsz, v2, 3), device=dev, generator=g) * 20 - 10
-        dpc = torch.sqrt(pairwise_sqdist(pc, pc))
-        w = (torch.rand((bsz, P), device=dev, generator=g) < 0.7).float()
-        out = K.consistency_sum_rank_major(cad, dpc, w, v2)
-        ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
-        err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item()  # f32 sums of ~7k terms, any order
-        if not err <= tol:
-            raise AssertionError(f"consistency_sum_rank_major error {err} > "
-                                 f"{tol}")
-        n_pairs = float(w.sum().item()) * P
-        b_ms, by = bound(4 * bsz * (3 * P + P + v2 * v2 + P), 12 * n_pairs)
-        return dict(
-            max_abs_err=err, tol=tol,
-            ms=cuda_ms(lambda: K.consistency_sum_rank_major(cad, dpc, w, v2),
-                       10),
-            plain_ms=cuda_ms(
-                lambda: K.consistency_sum_rank_major_plain(cad, dpc, w, v2), 2),
-            bound_ms=b_ms, bound_by=by, library_ms=None)
-
-    c16 = consistency(BATCH)
-    rows["consistency_sum_rank_major"] = dict(
-        route="cuda", source="pose6d_tpu_torch/csrc/consistency_rank_major.cu",
-        replaces="pose6d_tpu/ops/pallas/consistency.py:80", **c16,
-        b1=consistency(1),
-        shapes="coords (16,10240,3), dpc (16,2048,2048); b1: the same at "
-               "B = 1")
-
+    rows = {"flash_cross_attention": check_flash_forward(dev, g),
+            "consistency_sum_rank_major": check_rank_major(dev, g)}
     rows.update(check_cdist(dev, g))
     rows["flash_cross_attention_backward"] = check_flash_backward(dev, g)
     rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
     for name, row in rows.items():
         emit("kernel_check", name=name, **row)
     return rows
+
+
+def prefix_mask(bsz, n, n_valid, dev):
+    """(bsz, n) bool, the first n_valid[f % len(n_valid)] entries of
+    frame f valid: the padding of the serve and batch paths."""
+    lim = torch.tensor([n_valid[f % len(n_valid)] for f in range(bsz)],
+                       device=dev)
+    return torch.arange(n, device=dev)[None] < lim[:, None]
+
+
+# the refiner's two calls of a forward: (queries, keys, valid keys) with
+# the timing counts kept from earlier rows of the kernel table, and the
+# serve path's valid counts for LM obj 11 (622 PC points, 5002 CAD)
+FLASH_CALLS = ((5120, 2048, 2000), (2048, 5120, 5000))
+FLASH_SERVE = ((5120, 2048, 622), (2048, 5120, 5002))
+# lse of the kernel against torch.logsumexp: f32 sums of <= 5120 terms in
+# another order (and the segments' merge), elementwise
+LSE_TOL = "1e-5 * (1 + |L|)"
+
+
+def flash_case(name, q, kk, vv, kv, segments=None) -> dict:
+    """Two launches of the forward with lse (bit-identical, and equal to
+    serving's launch without lse) against the plain version (1e-4: f32
+    online against two-pass softmax, |out| <~ 3) and lse against
+    torch.logsumexp of the masked scores; a row with no valid key must
+    give zeros and lse = -inf. `segments` forces the key split (else
+    the wrapper's plan). Returns the case's numbers."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.kernels.attention import (_forward_kernel,
+                                                        flash_segments_on)
+    scale = 16 ** -0.5
+    (o1, l1), (o2, l2) = (_forward_kernel(q, kk, vv, kv, scale, True,
+                                          segments) for _ in range(2))
+    o3 = (K.flash_cross_attention(q, kk, vv, kv, scale) if segments is None
+          else _forward_kernel(q, kk, vv, kv, scale, False, segments)[0])
+    if not (torch.equal(o1, o2) and torch.equal(l1, l2)
+            and torch.equal(o1, o3)):
+        raise AssertionError(f"flash {name}: launches differ")
+    err = (o1 - K.flash_cross_attention_plain(q, kk, vv, kv, scale)
+           ).abs().max().item()
+    s = torch.einsum("bndh,bmdh->bnhm", q, kk) * scale
+    lref = torch.logsumexp(s.masked_fill(~kv[:, None, None], -math.inf), -1)
+    has = kv.any(-1)
+    lerr = (l1[has] - lref[has]).abs()
+    if not (err <= 1e-4 and bool((lerr <= 1e-5 * (1 + lref[has].abs())).all())
+            and bool((l1[~has] == -math.inf).all()) and not o1[~has].any()):
+        raise AssertionError(f"flash {name}: out {err}, lse {lerr.max()}, "
+                             "or a key-less frame wrong")
+    bsz, n, _, heads = q.shape
+    return dict(max_abs_err=err, lse_max_err=lerr.max().item(),
+                segments=segments or flash_segments_on(q.device, bsz, n,
+                                                       kk.shape[1], heads))
+
+
+def check_flash_forward(dev, g) -> dict:
+    """Kernel 1, the forward of both refiner calls: at B = 1 (the key
+    walk split across blocks) and B = 16, timed (graph replay and from
+    the host) on FLASH_CALLS, then held to the plain version and the
+    plain log-sum-exp on those, on the serve path's prefix masks, at
+    B = 16 unsplit (one segment forced), and on 3 valid keys in one
+    segment, a frame without keys, and N = 2000."""
+    from pose6d_tpu_torch.ops import kernels as K
+    scale = 16 ** -0.5
+
+    def inputs(bsz, n, m, n_valid):
+        q, kk, vv = (torch.randn((bsz, s, 16, 2), device=dev, generator=g)
+                     for s in (n, m, m))
+        return q, kk, vv, prefix_mask(bsz, m, n_valid, dev)
+
+    def timed(bsz):
+        t = dict.fromkeys(("ms", "call_ms", "plain_ms", "library_ms",
+                           "library_call_ms", "bound_ms"), 0.0)
+        cases = {}
+        for n, m, m_valid in FLASH_CALLS:
+            q, kk, vv, kv = inputs(bsz, n, m, [m_valid])
+            cases[f"{n}x{m}"] = flash_case(f"B={bsz} {n}x{m}", q, kk, vv, kv)
+
+            def kern():
+                return K.flash_cross_attention(q, kk, vv, kv, scale)
+            qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous()
+                          for x in (q, kk, vv))
+            mask = kv[:, None, None, :]
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)
+            t["ms"] += graph_ms(kern)
+            t["call_ms"] += cuda_ms(kern, 20)
+            t["plain_ms"] += cuda_ms(lambda: K.flash_cross_attention_plain(
+                q, kk, vv, kv, scale), 3)
+            t["library_ms"] += graph_ms(library, 5)
+            t["library_call_ms"] += cuda_ms(library, 5)
+            b_ms, by = bound(4 * bsz * 32 * (2 * n + 2 * m) + bsz * m,
+                             bsz * 2 * n * m_valid * 4 * 16)
+            t["bound_ms"] += b_ms
+        err = max(c["max_abs_err"] for c in cases.values())
+        return dict(t, bound_by=by, max_abs_err=err, cases=cases)
+
+    b16, b1 = timed(BATCH), timed(1)
+    cases = {}
+    for bsz in (1, BATCH):
+        for n, m, m_valid in FLASH_SERVE:
+            cases[f"B={bsz} {n}x{m}, {m_valid} valid"] = flash_case(
+                f"B={bsz} {n}x{m} prefix", *inputs(bsz, n, m, [m_valid]))
+    # the unsplit path, as the planner takes it for a large enough grid
+    n, m, m_valid = FLASH_CALLS[0]
+    cases[f"B={BATCH} {n}x{m}, {m_valid} valid, one segment"] = flash_case(
+        "unsplit", *inputs(BATCH, n, m, [m_valid]), segments=1)
+    q, kk, vv, kv = inputs(3, 2000, 5120, [5120])
+    kv[0] = False
+    kv[0, 100:103] = True                      # 3 keys, one tile
+    kv[1] = False                              # no key at all
+    cases["B=3 2000x5120: all / 3 valid / none"] = flash_case(
+        "edges", q, kk, vv, kv)
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/flash_cross_attention.cu",
+        replaces="pose6d_tpu/ops/pallas/attention.py:30",
+        tol=f"out 1e-4 abs; lse {LSE_TOL}", lse_tol=LSE_TOL,
+        **{k: b16[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "library_call_ms")},
+        b1={k: b1[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_call_ms",
+                               "max_abs_err")},
+        by_batch={"b16": b16["cases"], "b1": b1["cases"]}, cases=cases,
+        shapes="q (16,5120,16,2) x kv (16,2048,16,2), 2000 valid keys, + "
+               "the reverse, 5000 valid; b1: the same at B = 1",
+        timing="ms and library_ms: device time per call of both calls "
+               "(graph replay); call_ms: back-to-back calls from the host")
+
+
+def check_rank_major(dev, g) -> dict:
+    """Kernel 2 at B = 1 (the row walk split across blocks) and B = 16,
+    timed (graph replay and from the host) with 70 % of the rows live at
+    random (the kernel table's timing inputs), then held to the plain
+    version on the serve path's prefix-live weights (2000 and 622 of 2048
+    per rank group), on V2 = 2000 frames with every row live / a rank all
+    zero / all zero (exact zeros out), and on endpoints that repeat, as
+    real frames' do (timed too); two launches bit-identical in every
+    case. Also counts the non-negative floats where the kernel's square
+    root differs from sqrtf (all 2^31)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
+    from pose6d_tpu_torch.ops.kernels import _build
+    from pose6d_tpu_torch.ops.kernels.consistency import \
+        rank_major_segments_on
+
+    def inputs(bsz, v2, live=None):
+        cad = torch.rand((bsz, 5 * v2, 3), device=dev, generator=g) * 20 - 10
+        pc = torch.rand((bsz, v2, 3), device=dev, generator=g) * 20 - 10
+        dpc = torch.sqrt(pairwise_sqdist(pc, pc))
+        if live is None:
+            w = (torch.rand((bsz, 5 * v2), device=dev, generator=g)
+                 < 0.7).float()
+        else:
+            w = prefix_mask(bsz, v2, live, dev).float().repeat(1, 5)
+        return cad, dpc, w
+
+    def case(name, cad, dpc, w, v2) -> dict:
+        o1 = K.consistency_sum_rank_major(cad, dpc, w, v2)
+        o2 = K.consistency_sum_rank_major(cad, dpc, w, v2)
+        ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
+        err = (o1 - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()  # f32 sums of ~7k terms, any order
+        dead = w.sum(-1) == 0
+        if not (torch.equal(o1, o2) and err <= tol
+                and not o1[dead].any()):
+            raise AssertionError(f"rank-major {name}: error {err} > {tol}, "
+                                 "launches differ, or a dead frame non-zero")
+        return dict(max_abs_err=err, tol=tol,
+                    segments=rank_major_segments_on(dev, cad.shape[0], v2))
+
+    def timed(bsz):
+        cad, dpc, w = inputs(bsz, 2048)
+        res = case(f"B={bsz}", cad, dpc, w, 2048)
+        # coords, w and dpc read once, the sums written once; 12 flops
+        # per live (row, column) pair
+        p = 5 * 2048
+        b_ms, by = bound(4 * bsz * (3 * p + p + 2048 * 2048 + p),
+                         12 * float(w.sum().item()) * p)
+
+        def kern():
+            return K.consistency_sum_rank_major(cad, dpc, w, 2048)
+        return dict(res, ms=graph_ms(kern), call_ms=cuda_ms(kern, 10),
+                    plain_ms=cuda_ms(lambda: K.consistency_sum_rank_major_plain(
+                        cad, dpc, w, 2048), 2),
+                    bound_ms=b_ms, bound_by=by, library_ms=None)
+
+    c16, c1 = timed(BATCH), timed(1)
+    cases = {}
+    for bsz, live in ((1, [622]), (1, [2000]), (BATCH, [2000, 622])):
+        cases[f"B={bsz}, live prefix {live}"] = case(
+            f"prefix {live}", *inputs(bsz, 2048, live), 2048)
+    cad, dpc, w = inputs(3, 2000, [2000, 1500, 0])
+    w.view(3, 5, 2000)[1, 2] = 0.0             # one rank without live rows
+    cases["B=3, V2=2000: all / prefix 1500 with rank 2 dead / none"] = case(
+        "edges", cad, dpc, w, 2000)
+    # as on real frames, where the top-5 candidates of nearby PC points
+    # share CAD points: endpoints drawn from 1024 points, so many pairs
+    # are a point and itself (distance exactly 0)
+    for bsz in (1, BATCH):
+        cad, dpc, w = inputs(bsz, 2048, [2000, 622])
+        pick = torch.randint(0, 1024, (bsz, 5 * 2048), device=dev, generator=g)
+        cad = torch.gather(cad, 1, pick[..., None].expand(-1, -1, 3))
+        cases[f"B={bsz}, endpoints from 1024 points"] = dict(
+            case("shared endpoints", cad, dpc, w, 2048),
+            ms=graph_ms(lambda: K.consistency_sum_rank_major(cad, dpc, w,
+                                                             2048)))
+    lib = _build.library("consistency_rank_major.cu")
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    _build.check(lib.consistency_rank_major_sqrt_check(
+        bad.data_ptr(), _build.stream_ptr(dev)), "sqrt check")
+    if int(bad.item()):
+        raise AssertionError(f"kernel sqrt differs from sqrtf on "
+                             f"{int(bad.item())} floats")
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/consistency_rank_major.cu",
+        replaces="pose6d_tpu/ops/pallas/consistency.py:80",
+        **{k: c16[k] for k in ("max_abs_err", "tol", "ms", "call_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "segments")},
+        b1={k: c1[k] for k in ("max_abs_err", "tol", "ms", "call_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "segments")},
+        cases=cases, sqrt_mismatches_of_2e31=int(bad.item()),
+        shapes="coords (16,10240,3), dpc (16,2048,2048), 70 % rows live; "
+               "b1: the same at B = 1",
+        timing="ms: device time per call (graph replay); call_ms: "
+               "back-to-back calls from the host")
 
 
 # (label, frames, b rows, valid b rows): a one-frame request, the B = 16
@@ -546,6 +698,55 @@ def check_masked_consistency(dev, g) -> dict:
                          2),
         bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 2),
         shapes="ca, cb (16,10240,3), w (16,10240)")
+
+
+def sass_loop_counts() -> dict:
+    """Instructions that the sm_90a builds issue in the inner loops of the
+    two kernels redesigned for issue rate, read with cuobjdump -sass: the
+    rank-major consistency kernel's work per row entry (10 pairs: from
+    the weight test through the fast path's branch, plus the block that
+    accumulates w |da - d|) and the flash forward's per step of 8 keys x
+    4 (query, head) rows (the loop from its chunk test to its back
+    branch). "not measured" without cuobjdump."""
+    import re
+    import shutil
+    from pose6d_tpu_torch.ops.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def function(source, name):
+        sass = subprocess.run([tool, "-sass", str(_build._target(source))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        body = next(f for f in sass.split("Function : ")[1:]
+                    if name in f.split("\n")[0])
+        return [(int(a, 16), t) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,5})\*/\s+([^;]*);", body)]
+
+    def branch_after(ins, i):
+        while "BRA" not in ins[i][1]:
+            i += 1
+        return i
+
+    try:
+        ins = function("consistency_rank_major.cu", "consistency_rm_kernel")
+        first = next(i for i, (_, t) in enumerate(ins) if "MUFU.RSQ" in t)
+        lo = max(i for i in range(first) if "FSETP.NEU" in ins[i][1]) - 1
+        hi = branch_after(ins, first)
+        target = int(re.search(r"0x([0-9a-f]+)", ins[hi][1]).group(1), 16)
+        j = next(i for i, (a, _) in enumerate(ins) if a == target)
+        k = next(i for i in range(j + 1, len(ins))
+                 if ins[i][1].startswith(("LDS", "BSYNC")))
+        row_entry = hi - lo + 1 + k - j + 1
+        ins = function("flash_cross_attention.cu", "flash_fwd_kernelILi2")
+        lds = [i for i, (_, t) in enumerate(ins) if t.startswith("LDS.128")]
+        lo = max(i for i in range(lds[0]) if "BRA" in ins[i][1]) + 1
+        step = branch_after(ins, lds[-1]) - lo + 1
+    except (OSError, subprocess.SubprocessError, StopIteration,
+            ValueError, AttributeError, IndexError) as e:
+        return {"sass": f"not measured ({type(e).__name__})"}
+    return {"rank_major_per_row_entry": row_entry,
+            "rank_major_per_pair": row_entry / 10,
+            "flash_per_step": step, "flash_per_query_head_key": step / 32}
 
 
 def load_frames():
@@ -1124,6 +1325,7 @@ def main() -> int:
                 for src, rep in reports.items()})
 
     rows = check_kernels(dev)
+    emit("sass", **sass_loop_counts())
 
     frames = load_frames()
     emit("frames", objects=[f["obj"] for f in frames],

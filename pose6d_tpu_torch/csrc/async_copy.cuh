@@ -1,0 +1,43 @@
+// cp.async helpers: copies from device memory to shared memory that run
+// while the block computes on a tile it already holds. A copy of `ok =
+// false` writes zeros (source size 0); its source address must still be
+// a valid one. Used by consistency_rank_major.cu and
+// flash_cross_attention.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace async_copy {
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes; both addresses 16-byte aligned. .cg: through L2 only.
+__device__ __forceinline__ void copy16(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_addr(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes; both addresses 4-byte aligned.
+__device__ __forceinline__ void copy4(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   shared_addr(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Closes the group of copies issued since the last commit (possibly none).
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace async_copy

@@ -14,6 +14,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,12 +40,16 @@ SOURCES = {
         "masked_topk_cdist_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _L, _L, _L, _L, _L, _P]},
     "consistency_rank_major.cu": {
-        "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        "consistency_rank_major_tiles": [_P],
+        "consistency_rank_major_sqrt_check": [_P, _P],
+        "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _P]},
     "masked_consistency_sum.cu": {
         "masked_consistency_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
     "flash_cross_attention.cu": {
-        "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _F, _P]},
+        "flash_cross_attention_tiles": [_I, _P],
+        "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _F, _P]},
     "flash_cross_attention_bwd.cu": {
         "flash_cross_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _P, _I, _I, _I, _I, _I, _F,
@@ -72,9 +77,13 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest[:12]}.so"
+    """The library's path, named by a hash of the source, the shared
+    headers (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:12]}.so"
 
 
 def _start(source: str):
@@ -136,3 +145,58 @@ def check(code: int, what: str) -> None:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    return _sm_count(torch.device(device).index or 0)
+
+
+def segment_tiles(tiles: int, segments: int, s: int) -> range:
+    """The tiles of segment s when a kernel splits its walk over `tiles`
+    tiles into `segments` segments across blocks: interleaved (s, s + S,
+    ...), so that live rows or keys that form a prefix spread over every
+    segment."""
+    return range(s, tiles, segments)
+
+
+def plan_segments(blocks: int, tiles: int, sms: int, blocks_per_sm: int,
+                  least: int = 1) -> int:
+    """The number of segments G that a kernel with `blocks` blocks per
+    segment, walking `tiles` tiles, splits its walk into, on `sms` SMs
+    that hold `blocks_per_sm` of its blocks each. G is at least enough
+    for two blocks on every SM (and `least`), at most one segment per
+    tile, and up to twice that or 8; among those, the G with the fewest
+    tile-times: waves of blocks x (tiles of the longest segment + one
+    for the block's set-up and its share of the merge), the smallest on
+    a tie."""
+    fill = -(-2 * sms // blocks)
+    lo = max(1, least, min(fill, tiles))
+    hi = max(lo, min(tiles, max(2 * fill, 8)))
+    slots = sms * blocks_per_sm
+    return min(range(lo, hi + 1),
+               key=lambda g: (-(-blocks * g // slots) * (-(-tiles // g) + 1),
+                              g))
+
+
+_TILES: dict = {}
+
+
+def kernel_tiles(fn, expected: tuple, what: str, *args) -> int:
+    """Ask a kernel for its tiling once (`fn(*args, out)` writes the
+    tiles the wrapper plans with, then the blocks per SM the card holds,
+    and returns a CUDA error code); raise unless the tiles are
+    `expected`. Returns the blocks per SM."""
+    key = (what, args)
+    if key not in _TILES:
+        out = (ctypes.c_int * (len(expected) + 1))()
+        check(fn(*args, ctypes.cast(out, ctypes.c_void_p)), what)
+        if tuple(out)[:-1] != tuple(expected):
+            raise RuntimeError(f"{what}: kernel tiles {tuple(out)[:-1]}, "
+                               f"wrapper plans with {tuple(expected)}")
+        _TILES[key] = out[len(expected)]
+    return _TILES[key]

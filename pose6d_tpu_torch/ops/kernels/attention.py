@@ -20,6 +20,41 @@ import torch
 from ..masking import masked_softmax
 from . import _build
 
+# csrc/flash_cross_attention.cu's tiling (the wrapper checks it against
+# the built kernel): head counts it takes, keys per staged tile, most
+# key tiles one segment walks; a block covers both heads of
+# flash_queries_per_block(H) queries
+FLASH_HEADS = (1, 2, 4)
+FLASH_KEY_TILE, FLASH_MAX_SEGMENT_TILES = 32, 256
+
+
+def flash_queries_per_block(heads: int) -> int:
+    """128 threads, each with 4 (query, head) rows."""
+    return 128 * (4 // heads)
+
+
+def flash_segments(bsz: int, n: int, m: int, heads: int, sms: int,
+                   blocks_per_sm: int) -> int:
+    """The number of key segments G the forward splits the keys into
+    (_build.plan_segments over its query blocks x B and its key tiles):
+    at least two blocks on each of `sms` SMs, and no segment walking
+    more than FLASH_MAX_SEGMENT_TILES tiles. Segment g takes the key
+    tiles _build.segment_tiles(tiles, G, g)."""
+    tiles = -(-m // FLASH_KEY_TILE)
+    return _build.plan_segments(
+        -(-n // flash_queries_per_block(heads)) * bsz, tiles, sms,
+        blocks_per_sm, least=-(-tiles // FLASH_MAX_SEGMENT_TILES))
+
+
+def flash_segments_on(device, bsz: int, n: int, m: int, heads: int) -> int:
+    """flash_segments for the built kernel on the card `device` (its
+    tiling and blocks per SM asked from the library once)."""
+    per_sm = _build.kernel_tiles(
+        _build.library("flash_cross_attention.cu").flash_cross_attention_tiles,
+        (flash_queries_per_block(heads), FLASH_KEY_TILE,
+         FLASH_MAX_SEGMENT_TILES), "flash_cross_attention", heads)
+    return flash_segments(bsz, n, m, heads, _build.sm_count(device), per_sm)
+
 
 def flash_cross_attention_plain(q, k, v, kv_valid, sm_scale: float):
     scores = torch.einsum("bndh,bmdh->bhnm", q, k) * sm_scale
@@ -53,21 +88,41 @@ def _checked(q, k, v, kv_valid):
         raise TypeError("q, k, v must be float32 and kv_valid bool")
     if not (k.device == v.device == kv_valid.device == q.device):
         raise ValueError("q, k, v, kv_valid must be on one device")
-    return tuple(t.contiguous() for t in (q, k, v, kv_valid))
+    # the kernels read whole tokens as 16-byte vectors
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x.contiguous() for x in (q, k, v, kv_valid)))
 
 
-def _forward_kernel(q, k, v, kv_valid, sm_scale: float, with_lse: bool):
+def _forward_kernel(q, k, v, kv_valid, sm_scale: float, with_lse: bool,
+                    segments: int | None = None):
     """Launch the forward on contiguous, checked CUDA inputs; returns
-    (out, lse (B, N, H) or None)."""
+    (out, lse (B, N, H) or None). `segments` overrides the planned key
+    split (a check of the unsplit path)."""
     bsz, n, dim, heads = q.shape
+    m = k.shape[1]
+    if heads not in FLASH_HEADS:
+        raise ValueError(f"forward kernel takes {FLASH_HEADS} heads, got "
+                         f"{heads}")
+    lib = _build.library("flash_cross_attention.cu")
+    if segments is None:
+        segments = flash_segments_on(q.device, bsz, n, m, heads)
     out = torch.empty_like(q)
     lse = (torch.empty((bsz, n, heads), dtype=torch.float32,
                        device=q.device) if with_lse else None)
-    lib = _build.library("flash_cross_attention.cu")
+    # the key segments' (accumulator, running max and sum) per (query,
+    # head), merged in segment order by the kernel's second pass
+    part_acc = part_ml = None
+    if segments > 1:
+        part_acc = torch.empty((bsz, segments, n, dim * heads),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((bsz, segments, n, heads, 2),
+                              dtype=torch.float32, device=q.device)
     code = lib.flash_cross_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-        out.data_ptr(), lse.data_ptr() if with_lse else None, bsz, n,
-        k.shape[1], dim, heads, float(sm_scale), _build.stream_ptr(q.device))
+        out.data_ptr(), lse.data_ptr() if with_lse else None,
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), bsz, n, m, dim,
+        heads, segments, float(sm_scale), _build.stream_ptr(q.device))
     _build.check(code, "flash_cross_attention")
     _build.LAUNCHES["flash_cross_attention"] += 1
     return out, lse

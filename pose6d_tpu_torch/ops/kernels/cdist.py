@@ -9,8 +9,6 @@ that the k-pass returns when a row has fewer than k valid columns.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..geometry import pairwise_sqdist
@@ -41,11 +39,6 @@ def masked_argmin_cdist_plain(a, b, b_valid):
     return d2.min(dim=-1).values, torch.argmin(d2, dim=-1).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     """Kernel launch: a (B, N, C), b (B, M, C) f32, b_valid (B, M) bool
     on one CUDA device -> (d2 (B, N, k), idx (B, N, k) int32), or
@@ -71,7 +64,7 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
                    for x in (a, b, b_valid))
     lib = _build.library("masked_cdist.cu")
     splits = lib.masked_topk_cdist_splits(bsz, n, m, c,
-                                          _sm_count(a.device.index))
+                                          _build.sm_count(a.device))
     shape = (bsz, n) if squeeze else (bsz, n, k)
     d2 = torch.empty(shape, dtype=torch.float32, device=a.device)
     idx = torch.empty(shape, dtype=torch.int32, device=a.device)

@@ -14,6 +14,29 @@ import torch
 from ..geometry import pairwise_sqdist
 from . import _build
 
+# csrc/consistency_rank_major.cu's tiling (the wrapper checks it against
+# the built kernel): PC columns per block, PC rows per staged tile
+RM_COL_TILE, RM_ROW_TILE = 64, 32
+
+
+def rank_major_segments(bsz: int, v2: int, sms: int,
+                        blocks_per_sm: int) -> int:
+    """The number of row segments S the rank-major kernel splits its row
+    walk into (_build.plan_segments over its column blocks x B and its
+    row tiles): at least two blocks on each of `sms` SMs. Segment s
+    takes the row tiles _build.segment_tiles(tiles, S, s)."""
+    return _build.plan_segments(-(-v2 // RM_COL_TILE) * bsz,
+                                -(-v2 // RM_ROW_TILE), sms, blocks_per_sm)
+
+
+def rank_major_segments_on(device, bsz: int, v2: int) -> int:
+    """rank_major_segments for the built kernel on the card `device` (its
+    tiling and blocks per SM asked from the library once)."""
+    per_sm = _build.kernel_tiles(
+        _build.library("consistency_rank_major.cu").consistency_rank_major_tiles,
+        (RM_COL_TILE, RM_ROW_TILE), "consistency_sum_rank_major")
+    return rank_major_segments(bsz, v2, _build.sm_count(device), per_sm)
+
 
 def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
     """sum_i w_i * |d_cad(i, j) - dpc(i mod v2, j mod v2)| per pair j,
@@ -45,11 +68,18 @@ def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
     if not (dpc.device == w.device == coords_cad.device):
         raise ValueError("coords_cad, dpc, w must be on one device")
     coords_cad, dpc, w = (t.contiguous() for t in (coords_cad, dpc, w))
-    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
     lib = _build.library("consistency_rank_major.cu")
+    segments = rank_major_segments_on(w.device, bsz, v2)
+    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
+    # the endpoints packed as (x, y, z, |a|^2) rows, and the segments'
+    # partial sums (added in segment order by the kernel's last pass)
+    rows = torch.empty((bsz, p, 4), dtype=torch.float32, device=w.device)
+    part = (torch.empty((bsz, segments, p), dtype=torch.float32,
+                        device=w.device) if segments > 1 else None)
     code = lib.consistency_sum_rank_major_f32(
         coords_cad.data_ptr(), dpc.data_ptr(), w.data_ptr(), out.data_ptr(),
-        bsz, v2, p // v2, _build.stream_ptr(w.device))
+        rows.data_ptr(), None if part is None else part.data_ptr(), bsz, v2,
+        p // v2, segments, _build.stream_ptr(w.device))
     _build.check(code, "consistency_sum_rank_major")
     _build.LAUNCHES["consistency_sum_rank_major"] += 1
     return out

@@ -20,6 +20,13 @@ from pose6d_tpu_torch.models.attention import MultiHeadedAttention
 from pose6d_tpu_torch.models.weights import (flax_from_state_dict,
                                              state_dict_from_flax)
 from pose6d_tpu_torch.ops import nn as torch_nn
+from pose6d_tpu_torch.ops.kernels._build import segment_tiles
+from pose6d_tpu_torch.ops.kernels.attention import (
+    FLASH_KEY_TILE, FLASH_MAX_SEGMENT_TILES, flash_queries_per_block,
+    flash_segments)
+from pose6d_tpu_torch.ops.kernels.consistency import (RM_COL_TILE,
+                                                      RM_ROW_TILE,
+                                                      rank_major_segments)
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
                                           flash_cross_attention,
                                           flash_cross_attention_backward,
@@ -193,6 +200,149 @@ def test_consistency_plain_matches_pallas():
     # sums of ~270 terms of size ~5: f32 summation-order differences
     np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("weights", ["prefix", "dead_rank"])
+def test_consistency_plain_matches_pallas_serve_weights(weights):
+    """The serve path's weights: live rows a prefix of each rank group
+    (96 of 128 here, as 622 or 2000 of 2048 on the card), and with one
+    rank whose rows are all dead; K = 5 ranks, as the kernel takes."""
+    rng = np.random.default_rng(13)
+    v2, k = 128, 5
+    ca = (rng.normal(size=(v2 * k, 3)) * 2).astype(np.float32)
+    pc = (rng.normal(size=(v2, 3)) * 2).astype(np.float32)
+    w = np.zeros((k, v2), np.float32)
+    w[:, :96] = 1.0
+    if weights == "dead_rank":
+        w[2] = 0.0
+    w = w.reshape(-1)
+    dpc = np.linalg.norm(pc[:, None] - pc[None], axis=-1).astype(np.float32)
+    ref = jax_rm(jnp.asarray(ca), jnp.asarray(dpc), jnp.asarray(w), v2=v2,
+                 block_i=64, block_j=128, interpret=True)
+    out = consistency_sum_rank_major(_t(ca), _t(dpc), _t(w), v2)
+    # sums of <= 480 terms of size ~5: f32 summation-order differences
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-3)
+
+
+def _each_tile_once(tiles, segments):
+    walked = sorted(t for s in range(segments)
+                    for t in segment_tiles(tiles, segments, s))
+    return walked == list(range(tiles))
+
+
+# (SMs, blocks per SM): the H100 with the kernels' occupancies, and a
+# small card
+CARDS = [(132, 2), (132, 3), (7, 1)]
+
+
+@pytest.mark.parametrize("bsz,v2", [(1, 2048), (16, 2048), (1, 2000),
+                                    (3, 2000), (2, 37), (16, 5)])
+def test_rank_major_segments_cover_every_row_tile(bsz, v2):
+    tiles = -(-v2 // RM_ROW_TILE)
+    col_blocks = -(-v2 // RM_COL_TILE) * bsz
+    for sms, per_sm in CARDS:
+        s = rank_major_segments(bsz, v2, sms, per_sm)
+        assert 1 <= s <= tiles
+        assert _each_tile_once(tiles, s)
+        # two blocks on every SM, as far as the row tiles allow
+        assert col_blocks * s >= min(2 * sms, col_blocks * tiles)
+    if (bsz, v2) == (1, 2048):     # a one-frame request on the H100
+        assert rank_major_segments(1, 2048, 132, 2) > 1
+
+
+@pytest.mark.parametrize("bsz,n,m", [(1, 5120, 2048), (1, 2048, 5120),
+                                     (16, 5120, 2048), (16, 2048, 5120),
+                                     (3, 2000, 5120), (1, 300, 1000),
+                                     (2, 7, 100000)])
+@pytest.mark.parametrize("heads", [1, 2, 4])
+def test_flash_segments_cover_every_key_tile(bsz, n, m, heads):
+    tiles = -(-m // FLASH_KEY_TILE)
+    q_blocks = -(-n // flash_queries_per_block(heads)) * bsz
+    for sms, per_sm in CARDS:
+        g = flash_segments(bsz, n, m, heads, sms, per_sm)
+        assert 1 <= g <= tiles
+        assert _each_tile_once(tiles, g)
+        # no segment walks more tiles than the kernel's mask words hold
+        assert len(segment_tiles(tiles, g, 0)) <= FLASH_MAX_SEGMENT_TILES
+        assert q_blocks * g >= min(2 * sms, q_blocks * tiles)
+
+
+def _segment_state(q, k, v, valid, scale, keys):
+    """A segment's partial state over the keys `keys`, as the forward
+    kernel writes it: per (frame, query, head) the running max m (-inf
+    without a valid key), the sum l of exp(s - m) and the unnormalised
+    accumulator sum exp(s - m) v, in f32."""
+    s = torch.einsum("bndh,bmdh->bnhm", q, k[:, keys]) * scale
+    s = s.masked_fill(~valid[:, None, None, keys], -np.inf)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(m == -np.inf, 0.0, m)[..., None])
+    acc = torch.einsum("bnhm,bmdh->bndh", p, v[:, keys])
+    return m, p.sum(-1), acc
+
+
+def _merge_segments(states):
+    """The combine pass: segments in order against the largest running
+    max of each (query, head); an empty segment weighs 0, a row whose
+    segments are all empty gets zeros and lse = -inf."""
+    big = torch.stack([m for m, _, _ in states]).amax(0)
+    total_l = torch.zeros_like(big)
+    total_acc = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        w = torch.where(m == -np.inf, 0.0, torch.exp(m - big))
+        total_l = total_l + w * l
+        total_acc = total_acc + w[:, :, None, :] * acc
+    inv = torch.where(total_l > 0, 1.0 / total_l, 0.0)
+    lse = torch.where(total_l > 0, big + torch.log(total_l), -np.inf)
+    return total_acc * inv[:, :, None, :], lse
+
+
+@pytest.mark.parametrize("segments", [1, 3, 7])
+def test_split_kv_merge_matches_one_pass_and_float64(segments):
+    """The forward kernel's split-KV arithmetic on the CPU: key tiles
+    interleaved over segments, each segment's state, the fixed-order
+    merge; against the one-pass plain attention and float64. Frame 0 has
+    valid keys only in its first two tiles (so with 3 or 7 segments some
+    segments have none), frame 1 none at all, frame 2 random ones."""
+    rng = np.random.default_rng(14)
+    bsz, n, m, scale = 3, 24, 7 * FLASH_KEY_TILE - 5, 0.25
+    q, k, v = (torch.as_tensor(rng.normal(size=(bsz, s, 16, 2)).astype(
+        np.float32)) for s in (n, m, m))
+    valid = torch.as_tensor(rng.random((bsz, m)) > 0.5)
+    valid[0] = False
+    valid[0, :2 * FLASH_KEY_TILE - 3] = True
+    valid[1] = False
+    tiles = -(-m // FLASH_KEY_TILE)
+    states = []
+    for g in range(segments):
+        keys = torch.as_tensor([j for t in segment_tiles(tiles, segments, g)
+                                for j in range(t * FLASH_KEY_TILE,
+                                               min(m, (t + 1) * FLASH_KEY_TILE))],
+                               dtype=torch.long)
+        states.append(_segment_state(q, k, v, valid, scale, keys))
+    if segments == 7:
+        assert bool((states[5][0][0] == -np.inf).all())  # an empty segment
+    out, lse = _merge_segments(states)
+    # against the one-pass plain version: f32 both, other orders
+    torch.testing.assert_close(out, flash_cross_attention(q, k, v, valid,
+                                                          scale),
+                               rtol=0, atol=1e-5)
+    # against float64
+    s = np.einsum("bndh,bmdh->bnhm", q.double().numpy(), k.double().numpy())
+    s = np.where(valid.numpy()[:, None, None], s * scale, -np.inf)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        top = s.max(-1, keepdims=True)
+        p = np.exp(s - top)
+        ref_lse = (top[..., 0] + np.log(p.sum(-1)))
+        ref = np.einsum("bnhm,bmdh->bndh", p / p.sum(-1, keepdims=True),
+                        v.double().numpy())
+    ref[1] = 0.0
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+    has = valid.any(-1).numpy()
+    # log-sum-exp: f32 sums of <= 219 terms, relative to 1 + |L|
+    np.testing.assert_allclose(lse.numpy()[has], ref_lse[has], rtol=1e-5,
+                               atol=1e-5)
+    assert bool((lse[1] == -np.inf).all()) and not out[1].any()
 
 
 def test_attention_plain_matches_float64_softmax():
