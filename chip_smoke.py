@@ -553,77 +553,160 @@ def cdist_edges(name, kern, plain, c, dev, g) -> dict:
                 shape=f"a (3,{n},{c}) x b (3,{m},{c}): ties / 3 valid / none")
 
 
+# the refiner's two calls of a B = 8 train step: (queries, keys, valid
+# queries, valid keys) of the kernel table's timing inputs, and the
+# training frames' masks (CAD 5002 of 5120; PC 622 and 2000 of 2048,
+# alternating frames)
+FLASH_BWD_CALLS = ((5120, 2048, [5000], [2000]), (2048, 5120, [2000], [5000]))
+FLASH_BWD_TRAIN = ((5120, 2048, [5002], [622, 2000]),
+                   (2048, 5120, [622, 2000], [5002]))
+# TF32 tensor cores, dense (NVIDIA data sheet, H100 SXM)
+PEAK_TF32_FLOPS = 495e12
+
+
+def flash_backward_case(name, dev, g, n, m, n_valid, m_valid,
+                        keyless=True, segments=None) -> tuple:
+    """The backward kernel at B = 8 against autograd through the plain
+    version: q, k, v random, the first n_valid / m_valid queries / keys
+    of each frame valid (lists cycle over frames), dout 0 on the padded
+    queries (as after merge * q_valid), frame 3 without keys if
+    `keyless`. dq, dk, dv and the forward's lse within 1e-4 * max|ref| +
+    1e-6 (f32 sums over <= 5120 terms in another order, the
+    probabilities rebuilt from L, and 3xTF32 products: ~2^-20 relative
+    per operand); masked keys get dk = dv = 0 exactly, the key-less frame
+    dq = 0 and lse = -inf; two launches bit-identical. `segments` = (Gq,
+    Gkv) forces the split (else the wrapper's plan). Returns the case's
+    numbers, a closure that runs the public wrapper, and the inputs."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.kernels.attention import (
+        _backward_kernel, _forward_kernel, flash_backward_segments_on)
+    B, scale = TRAIN_BATCH, 16 ** -0.5
+    q, kk, vv = (torch.randn((B, s, 16, 2), device=dev, generator=g)
+                 for s in (n, m, m))
+    q_valid = prefix_mask(B, n, n_valid, dev)
+    kv = prefix_mask(B, m, m_valid, dev)
+    if keyless:
+        kv[3] = False
+    dout = torch.randn((B, n, 16, 2), device=dev, generator=g) \
+        * q_valid[..., None, None]
+    out, lse = _forward_kernel(q, kk, vv, kv, scale, True)
+    got = _backward_kernel(q, kk, vv, kv, scale, out, lse, dout, segments)
+    again = _backward_kernel(q, kk, vv, kv, scale, out, lse, dout, segments)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward {name}: launches differ")
+    want = K.flash_cross_attention_backward_plain(q, kk, vv, kv, scale, dout)
+    s = torch.einsum("bndh,bmdh->bnhm", q, kk) * scale
+    lse_ref = torch.logsumexp(s.masked_fill(~kv[:, None, None], -math.inf),
+                              -1)
+    has_key = kv.any(-1)[:, None, None]     # L = -inf checked below
+    err, tols = 0.0, []
+    for a, b in [(lse.where(has_key, 0.0), lse_ref.where(has_key, 0.0)),
+                 *zip(got, want)]:
+        tol = 1e-4 * b.abs().max().item() + 1e-6
+        e = (a - b).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"flash backward {name}: error {e} > {tol}")
+        err, tols = max(err, e), tols + [tol]
+    dead = ~kv.any(-1)
+    if not (bool((lse[dead] == -math.inf).all()) and not got[0][dead].any()
+            and not got[1][~kv].any() and not got[2][~kv].any()):
+        raise AssertionError(f"flash backward {name}: masked keys or the "
+                             "key-less frame got a gradient")
+    # valid (query, key) pairs x 2 heads of the frames that have keys
+    pairs = 2 * float((q_valid.sum(-1) * kv.sum(-1)).sum().item())
+    return dict(max_abs_err=err, tol=max(tols), pairs=pairs,
+                segments=list(segments or flash_backward_segments_on(
+                    dev, B, n, m, 2))), \
+        (lambda: K.flash_cross_attention_backward(q, kk, vv, kv, scale, out,
+                                                  lse, dout)), \
+        (q, kk, vv, kv, dout)
+
+
+def backward_bounds(B, n, m, pairs) -> dict:
+    """Least time for the backward on these inputs: q, k, v, out, dout, L
+    read and dq, dk, dv written once; 5 products of 16 per valid (query,
+    key, head) (s, dout . v, and the dq, dk, dv updates). bound_ms counts
+    them in f32 at the CUDA cores' rate; bound_tc_ms in 3xTF32 (3 x the
+    flops) at the TF32 tensor-core rate, plus exp(s - L) and dS = P (dP -
+    D) (4 operations) at the f32 rate."""
+    n_bytes = 4 * B * 32 * (4 * n + 4 * m) + 4 * B * n * 2 + B * m
+    b_ms, by = bound(n_bytes, pairs * 5 * 16 * 2)
+    tc = pairs * 5 * 16 * 2 * 3 / PEAK_TF32_FLOPS + pairs * 4 / PEAK_F32_FLOPS
+    return dict(bound_ms=b_ms, bound_by=by,
+                bound_tc_ms=1e3 * max(n_bytes / PEAK_BYTES, tc))
+
+
+def mma_tf32_tflops(dev) -> float:
+    """The TF32 rate of mma.sync.m16n8k8 that the card sustains
+    (flash_cross_attention_bwd.cu mma_rate_kernel: 8 blocks of 4 warps
+    per SM, each warp 8 independent products per step), in TFLOP/s."""
+    from pose6d_tpu_torch.ops.kernels import _build
+    lib = _build.library("flash_cross_attention_bwd.cu")
+    blocks, iters = 8 * _build.sm_count(dev), 4096
+    out = torch.zeros(blocks, device=dev)
+    ms = cuda_ms(lambda: _build.check(lib.flash_cross_attention_bwd_mma_rate(
+        blocks, iters, out.data_ptr(), _build.stream_ptr(dev)), "mma rate"),
+        5, 2)
+    return blocks * 4 * iters * 8 * 2 * 16 * 8 * 8 / (ms * 1e9)
+
+
 def check_flash_backward(dev, g) -> dict:
     """dq, dk, dv of the hand-written backward against autograd through
-    the plain version, at B = 8 in both directions of the refiner, with
-    padded queries (dout = 0 there, as after merge * q_valid) and one
-    frame whose keys are all masked."""
+    the plain version, at B = 8 in both directions of the refiner: on
+    the kernel table's timing inputs (frame 3 without keys), on the
+    training frames' masks, and unsplit (one segment each forced). Both
+    sets timed by CUDA-graph replay (ms) and back-to-back from the host
+    (call_ms); the plain version and autograd through SDPA beside."""
     from pose6d_tpu_torch.ops import kernels as K
-    from pose6d_tpu_torch.ops.kernels.attention import _forward_kernel
-    B, scale = TRAIN_BATCH, 16 ** -0.5
-    ms = plain_ms = lib_ms = b_ms = 0.0
-    err, by, tols = 0.0, "", []
-    for n, m, n_valid, m_valid in ((5120, 2048, 5000, 2000),
-                                   (2048, 5120, 2000, 5000)):
-        q, kk, vv = (torch.randn((B, s, 16, 2), device=dev, generator=g)
-                     for s in (n, m, m))
-        q_valid = torch.arange(n, device=dev).expand(B, n) < n_valid
-        kv = torch.arange(m, device=dev).expand(B, m) < m_valid
-        kv[3] = False                              # a frame with no key
-        dout = torch.randn((B, n, 16, 2), device=dev, generator=g) \
-            * q_valid[..., None, None]
-        out, lse = _forward_kernel(q, kk, vv, kv, scale, True)
-        got = K.flash_cross_attention_backward(q, kk, vv, kv, scale, out,
-                                               lse, dout)
-        want = K.flash_cross_attention_backward_plain(q, kk, vv, kv, scale,
-                                                      dout)
-        s = torch.einsum("bndh,bmdh->bnhm", q, kk) * scale
-        lse_ref = torch.logsumexp(s.masked_fill(~kv[:, None, None], -math.inf),
-                                  -1)
-        has_key = kv.any(-1)[:, None, None]     # L = -inf checked below
-        pairs = [(lse.where(has_key, 0.0), lse_ref.where(has_key, 0.0)),
-                 *zip(got, want)]
-        for a, b in pairs:
-            # f32 sums over <= 5120 terms in another order, and the
-            # probabilities rebuilt from L instead of a normalised sum
-            tol = 1e-4 * b.abs().max().item() + 1e-6
-            e = (a - b).abs().max().item()
-            if not e <= tol:
-                raise AssertionError(f"flash backward error {e} > {tol}")
-            err, tols = max(err, e), tols + [tol]
-        if not (bool((lse[3] == -math.inf).all()) and not got[0][3].any()
-                and not got[1][~kv].any() and not got[2][~kv].any()):
-            raise AssertionError("masked keys or the key-less frame got a "
-                                 "gradient")
-        ms += cuda_ms(lambda: K.flash_cross_attention_backward(
-            q, kk, vv, kv, scale, out, lse, dout), 10)
-        plain_ms += cuda_ms(lambda: K.flash_cross_attention_backward_plain(
-            q, kk, vv, kv, scale, dout), 2)
+    B = TRAIN_BATCH
+    t = dict.fromkeys(("ms", "call_ms", "plain_ms", "library_ms",
+                       "bound_ms", "bound_tc_ms"), 0.0)
+    train_ms, cases, by = 0.0, {}, ""
+    for n, m, n_valid, m_valid in FLASH_BWD_CALLS:
+        res, kern, (q, kk, vv, kv, dout) = flash_backward_case(
+            f"{n}x{m}", dev, g, n, m, n_valid, m_valid)
+        bnd = backward_bounds(B, n, m, res["pairs"])
+        res.update(ms=graph_ms(kern), call_ms=cuda_ms(kern, 10), **bnd)
+        cases[f"{n}x{m}, {n_valid} / {m_valid} valid, frame 3 key-less"] = res
+        t["plain_ms"] += cuda_ms(lambda: K.flash_cross_attention_backward_plain(
+            q, kk, vv, kv, 16 ** -0.5, dout), 2)
         qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous().requires_grad_()
                       for x in (q, kk, vv))
         lo = torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=kv[:, None, None, :])
         do = dout.permute(0, 3, 1, 2).contiguous()
-        lib_ms += cuda_ms(lambda: torch.autograd.grad(
+        t["library_ms"] += cuda_ms(lambda: torch.autograd.grad(
             lo, (qs, ks, vs), do, retain_graph=True), 5)
-        # least work for what this data needs: valid queries x valid keys
-        # of the frames that have keys, 5 products of 16 per (pair, head)
-        # (s, dout.v, and the dq, dk, dv updates); q, k, v, out, dout,
-        # L read and dq, dk, dv written once
-        n_pairs = (B - 1) * n_valid * m_valid * 2
-        t, by = bound(4 * B * 32 * (4 * n + 4 * m) + 4 * B * n * 2 + B * m,
-                      n_pairs * 5 * 16 * 2)
-        b_ms += t
+        for key in ("ms", "call_ms", "bound_ms", "bound_tc_ms"):
+            t[key] += res[key]
+        by = bnd["bound_by"]
+    for n, m, n_valid, m_valid in FLASH_BWD_TRAIN:
+        res, kern, _ = flash_backward_case(
+            f"train {n}x{m}", dev, g, n, m, n_valid, m_valid, keyless=False)
+        res.update(ms=graph_ms(kern), **backward_bounds(B, n, m,
+                                                       res["pairs"]))
+        train_ms += res["ms"]
+        cases[f"training masks {n}x{m}, {n_valid} / {m_valid} valid"] = res
+    n, m, n_valid, m_valid = FLASH_BWD_CALLS[1]
+    cases[f"{n}x{m}, one segment each"] = flash_backward_case(
+        "unsplit", dev, g, n, m, n_valid, m_valid, segments=(1, 1))[0]
+    for label, res in cases.items():
+        emit("kernel_case", name="flash_cross_attention_backward",
+             case=f"B=8 {label}", **res)
     return dict(
         route="cuda", source="pose6d_tpu_torch/csrc/flash_cross_attention_bwd.cu",
         replaces="pose6d_tpu/ops/pallas/attention.py:30 (the library "
                  "flash attention's dq and dkv pallas_calls)",
-        max_abs_err=err, tol=f"1e-4 * max|ref| + 1e-6 per tensor "
-                              f"(max {max(tols):.3g})",
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-        library_ms=lib_ms,
-        shapes="q (8,5120,16,2) x kv (8,2048,16,2) + the reverse, "
-               "frame 3 without keys")
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        tol="1e-4 * max|ref| + 1e-6 per tensor (max "
+            f"{max(c['tol'] for c in cases.values()):.3g})",
+        **t, bound_by=by, train_masks_ms=train_ms,
+        mma_sync_tf32_tflops=mma_tf32_tflops(dev),
+        shapes="q (8,5120,16,2) x kv (8,2048,16,2), 5000 / 2000 valid, + "
+               "the reverse, frame 3 without keys; train_masks_ms: the "
+               "training frames' masks",
+        timing="ms: device time per call of both calls (graph replay); "
+               "call_ms: back-to-back calls from the host")
 
 
 def consistency_reference(ca, cb, w):
@@ -647,70 +730,140 @@ def consistency_reference(ca, cb, w):
     return torch.stack(ref), torch.stack(scale), torch.stack(expand)
 
 
-def check_masked_consistency(dev, g) -> dict:
-    """The PC-major consistency sums at B = 16, P = 10240: CAD-side
-    endpoints in the model frame (+-10 cm), PC-side ones ~100 cm down
-    the optical axis, half of them consistent, 70 % of the rows live."""
-    from pose6d_tpu_torch.ops import kernels as K
-    B, P = BATCH, 5 * 2048
-    ca = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+def consistency_inputs(dev, g, bsz: int, shared: bool = False):
+    """PC-major consistency inputs, P = 10240: CAD-side endpoints in the
+    model frame (+-10 cm), PC-side ones ~100 cm down the optical axis,
+    half of them consistent, 70 % of the rows live at random. `shared`:
+    as on the PC-major filter's real inputs, cb comes in groups of 5
+    equal points (the 5 candidates of one PC point; pair index = PC
+    point * 5 + rank), the CAD endpoints are drawn from 1024 points
+    (nearby PC points share candidates), and the live rows are the
+    first 2000 or 622 PC points' groups."""
+    B, P = bsz, 5 * 2048
     rot = torch.linalg.qr(torch.randn((3, 3), device=dev, generator=g))[0]
-    cb = ca @ rot.T + torch.tensor([0.0, 0.0, 100.0], device=dev)
-    noise = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
-    cb = torch.where(torch.rand((B, P, 1), device=dev, generator=g) < 0.5,
-                     cb + 0.05 * noise, cb + noise)
-    w = (torch.rand((B, P), device=dev, generator=g) < 0.7).float()
+    shift = torch.tensor([0.0, 0.0, 100.0], device=dev)
+    if not shared:
+        ca = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+        cb = ca @ rot.T + shift
+        noise = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+        cb = torch.where(torch.rand((B, P, 1), device=dev, generator=g) < 0.5,
+                         cb + 0.05 * noise, cb + noise)
+        w = (torch.rand((B, P), device=dev, generator=g) < 0.7).float()
+        return ca, cb, w
+    cad = torch.rand((B, 1024, 3), device=dev, generator=g) * 20 - 10
+    # PC point i sees CAD point i mod 1024 (within 1 cm); its rank-0
+    # candidate is that point, the other four are drawn at random
+    own = torch.arange(2048, device=dev) % 1024
+    pc = cad[:, own] @ rot.T + shift \
+        + torch.rand((B, 2048, 3), device=dev, generator=g) * 2 - 1
+    pick = torch.randint(0, 1024, (B, 2048, 5), device=dev, generator=g)
+    pick[..., 0] = own
+    ca = torch.gather(cad, 1, pick.reshape(B, P, 1).expand(-1, -1, 3))
+    cb = pc.repeat_interleave(5, dim=1)
+    w = prefix_mask(B, 2048, [2000, 622], dev).float().repeat_interleave(
+        5, dim=1)
+    return ca, cb, w
+
+
+def consistency_case(name, ca, cb, w) -> dict:
+    """Two launches (bit-identical) against float64 from direct
+    differences (2e-5 of sum w (da + db): f32 rounding of each distance
+    and of sums of ~7000 terms) and against the plain version (the f32
+    expansion's bound on top of that)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.kernels.consistency import \
+        consistency_segments_on
     out = K.masked_consistency_sum(ca, cb, w)
+    if not torch.equal(out, K.masked_consistency_sum(ca, cb, w)):
+        raise AssertionError(f"masked_consistency_sum {name}: launches "
+                             "differ")
     plain = K.masked_consistency_sum_plain(ca, cb, w)
     ref, scale, expand = consistency_reference(ca, cb, w)
-    # the kernel's direct differences against float64: f32 rounding of
-    # each distance and of sums of ~7000 terms, 2e-5 of sum w (da + db)
     err_direct = (out.double() - ref).abs()
     if not bool((err_direct <= 2e-5 * scale).all()):
-        raise AssertionError("masked_consistency_sum disagrees with float64")
-    # against the plain version: the expansion's bound on top of that
+        raise AssertionError(f"masked_consistency_sum {name} disagrees with "
+                             "float64")
     err = (out - plain).abs()
     tol = expand + 4e-5 * scale
     if not bool((err.double() <= tol).all()):
-        raise AssertionError("masked_consistency_sum disagrees with its "
-                             "plain version beyond the expansion's error")
-    n_pairs = float(w.sum().item()) * P
-    # per live (row, column) pair: 6 differences, 2 x (mul + 2 FMA),
-    # 2 sqrt, a difference, an abs and one FMA: 22 operations
-    b_ms, by = bound(4 * B * P * (3 + 3 + 1 + 1), 22 * n_pairs)
+        raise AssertionError(f"masked_consistency_sum {name} disagrees with "
+                             "its plain version beyond the expansion's error")
+    return dict(max_abs_err=err.max().item(),
+                max_rel_err_vs_float64=(err_direct / ref.clamp_min(1e-30)
+                                        ).max().item(),
+                max_tol_margin=(err.double() / tol).max().item(),
+                segments=consistency_segments_on(w.device, *w.shape))
 
-    def library():
-        da = torch.cdist(ca, ca)
-        db = torch.cdist(cb, cb)
-        return torch.einsum("bi,bij->bj", w, (da - db).abs_())
 
+def check_masked_consistency(dev, g) -> dict:
+    """The PC-major consistency sums at B = 16 and B = 1, P = 10240, on
+    random endpoints with 70 % of the rows live and, at B = 16, on
+    endpoints shared as on real frames; each case held to float64 and
+    to the plain version, two launches bit-identical, timed by CUDA-graph
+    replay (ms; B = 16 also back-to-back from the host, call_ms)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    P = 5 * 2048
+    rows, cases = {}, {}
+    for label, bsz in (("b16", BATCH), ("b1", 1)):
+        ca, cb, w = consistency_inputs(dev, g, bsz)
+        res = consistency_case(label, ca, cb, w)
+        # per live (row, column) pair: 6 differences, 2 x (mul + 2 FMA),
+        # 2 sqrt, a difference, an abs and one FMA: 22 operations
+        b_ms, by = bound(4 * bsz * P * (3 + 3 + 1 + 1),
+                         22 * float(w.sum().item()) * P)
+
+        def kern():
+            return K.masked_consistency_sum(ca, cb, w)
+
+        def library():
+            da = torch.cdist(ca, ca)
+            db = torch.cdist(cb, cb)
+            return torch.einsum("bi,bij->bj", w, (da - db).abs_())
+        rows[label] = cases[f"{label}, 70 % live"] = dict(
+            res, ms=graph_ms(kern), call_ms=cuda_ms(kern, 10),
+            plain_ms=cuda_ms(lambda: K.masked_consistency_sum_plain(ca, cb,
+                                                                    w), 2),
+            bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 2))
+    ca, cb, w = consistency_inputs(dev, g, BATCH, shared=True)
+    cases["B=16, cb in groups of 5, CAD from 1024 points, live prefix "
+          "[2000, 622]"] = dict(
+        consistency_case("shared endpoints", ca, cb, w),
+        ms=graph_ms(lambda: K.masked_consistency_sum(ca, cb, w)))
+    for label, res in cases.items():
+        emit("kernel_case", name="masked_consistency_sum", case=label, **res)
+    main = rows["b16"]
     return dict(
         route="cuda", source="pose6d_tpu_torch/csrc/masked_consistency_sum.cu",
         replaces="pose6d_tpu/ops/pallas/consistency.py:136",
-        max_abs_err=err.max().item(),
-        tol="the f32 expansion's bound (min(sqrt(e), e/d) per term, "
-            "e = 8 eps (|x|^2+|y|^2)) + 4e-5 * sum w (da + db)",
-        max_rel_err_vs_float64=(err_direct / ref.clamp_min(1e-30)
-                                ).max().item(),
-        max_tol_margin=(err.double() / tol).max().item(),
-        ms=cuda_ms(lambda: K.masked_consistency_sum(ca, cb, w), 10),
-        plain_ms=cuda_ms(lambda: K.masked_consistency_sum_plain(ca, cb, w),
-                         2),
-        bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 2),
-        shapes="ca, cb (16,10240,3), w (16,10240)")
+        tol="float64: 2e-5 * sum w (da + db); plain: the f32 expansion's "
+            "bound (min(sqrt(e), e/d) per term, e = 8 eps (|x|^2+|y|^2)) "
+            "+ 4e-5 * sum w (da + db)",
+        **{k: main[k] for k in ("max_abs_err", "max_rel_err_vs_float64",
+                                "max_tol_margin", "segments", "ms",
+                                "call_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        b1=rows["b1"],
+        shapes="ca, cb (16,10240,3), w (16,10240), 70 % live; b1: the same "
+               "at B = 1",
+        timing="ms: device time per call (graph replay); call_ms: "
+               "back-to-back calls from the host")
 
 
 def sass_loop_counts() -> dict:
     """Instructions that the sm_90a builds issue in the inner loops of the
-    two kernels redesigned for issue rate, read with cuobjdump -sass: the
-    rank-major consistency kernel's work per row entry (10 pairs: from
-    the weight test through the fast path's branch, plus the block that
-    accumulates w |da - d|) and the flash forward's per step of 8 keys x
-    4 (query, head) rows (the loop from its chunk test to its back
-    branch). "not measured" without cuobjdump."""
+    kernels redesigned for issue rate, read with cuobjdump -sass: the two
+    consistency kernels' work per row entry (from the weight test
+    through the square roots' range branch, plus the block that
+    accumulates w |da - d|: 10 pairs rank-major, 8 PC-major), the flash
+    forward's per step of 8 keys x 4 (query, head) rows (the loop from
+    its chunk test to its back branch), and the flash backward's per
+    chunk of 8 walked rows x 16 rows x 2 heads (the loop around the
+    tensor-core products, HMMA counted apart). "not measured" without
+    cuobjdump."""
     import re
     import shutil
     from pose6d_tpu_torch.ops.kernels import _build
+    from pose6d_tpu_torch.ops.kernels.consistency import PCM_COL_TILE
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
     def function(source, name):
@@ -727,8 +880,7 @@ def sass_loop_counts() -> dict:
             i += 1
         return i
 
-    try:
-        ins = function("consistency_rank_major.cu", "consistency_rm_kernel")
+    def row_entry(ins):
         first = next(i for i, (_, t) in enumerate(ins) if "MUFU.RSQ" in t)
         lo = max(i for i in range(first) if "FSETP.NEU" in ins[i][1]) - 1
         hi = branch_after(ins, first)
@@ -736,17 +888,48 @@ def sass_loop_counts() -> dict:
         j = next(i for i, (a, _) in enumerate(ins) if a == target)
         k = next(i for i in range(j + 1, len(ins))
                  if ins[i][1].startswith(("LDS", "BSYNC")))
-        row_entry = hi - lo + 1 + k - j + 1
+        return hi - lo + 1 + k - j + 1
+
+    def mma_loop(ins):
+        """(instructions, HMMA) from the branch before the first HMMA to
+        the branch after the last."""
+        hm = [i for i, (_, t) in enumerate(ins) if t.startswith("HMMA")]
+        lo = max(i for i in range(hm[0]) if "BRA" in ins[i][1]) + 1
+        hi = branch_after(ins, hm[-1])
+        return hi - lo + 1, sum(t.startswith("HMMA") for _, t in ins[lo:hi])
+
+    try:
+        rm = row_entry(function("consistency_rank_major.cu",
+                                "consistency_rm_kernel"))
+        pcm = row_entry(function("masked_consistency_sum.cu",
+                                 "masked_consistency_kernel"))
         ins = function("flash_cross_attention.cu", "flash_fwd_kernelILi2")
         lds = [i for i, (_, t) in enumerate(ins) if t.startswith("LDS.128")]
         lo = max(i for i in range(lds[0]) if "BRA" in ins[i][1]) + 1
         step = branch_after(ins, lds[-1]) - lo + 1
+        bwd = {name: mma_loop(function("flash_cross_attention_bwd.cu",
+                                       f"flash_bwd_{name}_kernelILi2"))
+               for name in ("dq", "dkv")}
     except (OSError, subprocess.SubprocessError, StopIteration,
             ValueError, AttributeError, IndexError) as e:
         return {"sass": f"not measured ({type(e).__name__})"}
-    return {"rank_major_per_row_entry": row_entry,
-            "rank_major_per_pair": row_entry / 10,
-            "flash_per_step": step, "flash_per_query_head_key": step / 32}
+    # a chunk is 8 x 16 (query, key) x 2 heads with 3 mma per product and
+    # k-step: 18 HMMA per head in the dq kernel (s, dout . v over 2
+    # k-steps, 2 n-tiles of dq), 24 in the dkv kernel (dk and dv too).
+    # Lane-instructions per (query, key, head) are warp-instructions per
+    # chunk x 32 / 256.
+    per = {}
+    for name, (n, h) in bwd.items():
+        chunks = h / (36 if name == "dq" else 48)
+        per[f"flash_bwd_{name}_per_chunk"] = n / chunks
+        per[f"flash_bwd_{name}_hmma_per_chunk"] = h / chunks
+    return {"rank_major_per_row_entry": rm, "rank_major_per_pair": rm / 10,
+            "pc_major_per_row_entry": pcm,
+            "pc_major_per_pair": pcm / (PCM_COL_TILE // 32),
+            "flash_per_step": step, "flash_per_query_head_key": step / 32,
+            **per, "flash_bwd_lane_instructions_per_query_key_head":
+                (per["flash_bwd_dq_per_chunk"]
+                 + per["flash_bwd_dkv_per_chunk"]) / 8}
 
 
 def load_frames():
@@ -1352,7 +1535,8 @@ def main() -> int:
         line.append({"name": name, "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
                      **{k: row[k] for k in keys},
-                     **{k: row[k] for k in ("b1", "call_ms") if k in row}})
+                     **{k: row[k] for k in ("b1", "call_ms", "bound_tc_ms")
+                        if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

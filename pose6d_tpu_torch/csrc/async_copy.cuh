@@ -1,8 +1,8 @@
 // cp.async helpers: copies from device memory to shared memory that run
 // while the block computes on a tile it already holds. A copy of `ok =
 // false` writes zeros (source size 0); its source address must still be
-// a valid one. Used by consistency_rank_major.cu and
-// flash_cross_attention.cu.
+// a valid one. Used by consistency_rank_major.cu,
+// masked_consistency_sum.cu and both flash_cross_attention kernels.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -45,15 +45,17 @@ SOURCES = {
         "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                            _I, _P]},
     "masked_consistency_sum.cu": {
-        "masked_consistency_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
+        "masked_consistency_tiles": [_P],
+        "masked_consistency_sum_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _P]},
     "flash_cross_attention.cu": {
         "flash_cross_attention_tiles": [_I, _P],
         "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _F, _P]},
     "flash_cross_attention_bwd.cu": {
-        "flash_cross_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _P, _P, _I, _I, _I, _I, _I, _F,
-                                          _P]},
+        "flash_cross_attention_bwd_tiles": [_I, _I, _P],
+        "flash_cross_attention_bwd_mma_rate": [_I, _I, _P, _P],
+        "flash_cross_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _P]},
 }
 
 # launches per kernel wrapper; each wrapper adds one where it launches

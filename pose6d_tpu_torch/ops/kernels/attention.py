@@ -1,5 +1,6 @@
 """Masked cross-attention, forward and backward (kernels:
-csrc/flash_cross_attention.cu and csrc/flash_cross_attention_bwd.cu).
+csrc/flash_cross_attention.cu and csrc/flash_cross_attention_bwd.cu, the
+backward's products on the tensor cores in 3xTF32).
 
 Port of pose6d_tpu/ops/pallas/attention.py:30 flash_cross_attention
 and of the fused backward that JAX's library flash attention brings
@@ -54,6 +55,46 @@ def flash_segments_on(device, bsz: int, n: int, m: int, heads: int) -> int:
         (flash_queries_per_block(heads), FLASH_KEY_TILE,
          FLASH_MAX_SEGMENT_TILES), "flash_cross_attention", heads)
     return flash_segments(bsz, n, m, heads, _build.sm_count(device), per_sm)
+
+
+# csrc/flash_cross_attention_bwd.cu's tiling (checked against the built
+# kernels): rows per block (queries of the dq kernel, keys of the dkv
+# kernel) and walked rows per tile (keys, queries); the most tiles one
+# segment walks is FLASH_MAX_SEGMENT_TILES, as in the forward
+FLASH_BWD_ROWS, FLASH_BWD_TILE = 64, 32
+
+
+def flash_backward_segments(bsz: int, n: int, m: int, sms: int,
+                            per_sm_dq: int, per_sm_dkv: int) -> tuple:
+    """(Gq, Gkv): the number of segments the backward's dq kernel splits
+    its key walk into and the dkv kernel its query walk
+    (_build.plan_segments over each kernel's blocks x B and walked
+    tiles, each with the blocks per SM its build reports): at least two
+    blocks on each of `sms` SMs, no segment walking more than
+    FLASH_MAX_SEGMENT_TILES tiles. Segment g takes the tiles
+    _build.segment_tiles(tiles, G, g)."""
+    def plan(rows, walked, per_sm):
+        tiles = -(-walked // FLASH_BWD_TILE)
+        return _build.plan_segments(
+            -(-rows // FLASH_BWD_ROWS) * bsz, tiles, sms, per_sm,
+            least=-(-tiles // FLASH_MAX_SEGMENT_TILES))
+    # the dkv kernel walks the queries padded to whole dq blocks
+    n_pad = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS
+    return plan(n, m, per_sm_dq), plan(m, n_pad, per_sm_dkv)
+
+
+def flash_backward_segments_on(device, bsz: int, n: int, m: int,
+                               heads: int) -> tuple:
+    """flash_backward_segments for the built kernels on the card
+    `device` (their tiling and blocks per SM asked once)."""
+    lib = _build.library("flash_cross_attention_bwd.cu")
+    per_sm = [_build.kernel_tiles(
+        lib.flash_cross_attention_bwd_tiles,
+        (FLASH_BWD_ROWS, FLASH_BWD_TILE, FLASH_MAX_SEGMENT_TILES),
+        f"flash_cross_attention_backward[{which}]", heads, which)
+        for which in (0, 1)]
+    return flash_backward_segments(bsz, n, m, _build.sm_count(device),
+                                   *per_sm)
 
 
 def flash_cross_attention_plain(q, k, v, kv_valid, sm_scale: float):
@@ -128,6 +169,57 @@ def _forward_kernel(q, k, v, kv_valid, sm_scale: float, with_lse: bool,
     return out, lse
 
 
+def _backward_kernel(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
+                     segments: tuple | None = None):
+    """Launch the backward on checked CUDA inputs; returns (dq, dk, dv).
+    `segments` = (Gq, Gkv) overrides the planned splits (a check of the
+    unsplit path)."""
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (q.shape[0], q.shape[1], q.shape[3]):
+        raise ValueError(f"bad shapes out{tuple(out.shape)} "
+                         f"dout{tuple(dout.shape)} lse{tuple(lse.shape)}")
+    if any(t.dtype != torch.float32 or t.device != q.device
+           for t in (out, lse, dout)):
+        raise TypeError("out, lse, dout must be float32 on q's device")
+    bsz, n, dim, heads = q.shape
+    m = k.shape[1]
+    if heads not in FLASH_HEADS:
+        raise ValueError(f"backward kernel takes {FLASH_HEADS} heads, got "
+                         f"{heads}")
+    # out and dout are read as whole tokens (16-byte vectors) too
+    out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (out.contiguous(), dout.contiguous()))
+    lse = lse.contiguous()
+    lib = _build.library("flash_cross_attention_bwd.cu")
+    seg_q, seg_kv = segments or flash_backward_segments_on(q.device, bsz, n,
+                                                           m, heads)
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # per (query, head) (L log2 e, D) and per 32 queries a word of live
+    # rows, for queries padded to whole dq blocks; the segments' partial
+    # dq or (dk, dv), merged in segment order by the kernel's last passes
+    n_pad = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS
+    ld = torch.empty((bsz, n_pad, heads, 2), dtype=torch.float32, device=dev)
+    words = torch.empty((bsz, n_pad // FLASH_BWD_TILE), dtype=torch.int32,
+                        device=dev)
+    part_q = (torch.empty((bsz, seg_q, n, dim * heads), dtype=torch.float32,
+                          device=dev) if seg_q > 1 else None)
+    part_k, part_v = ((torch.empty((bsz, seg_kv, m, dim * heads),
+                                   dtype=torch.float32, device=dev)
+                       for _ in range(2)) if seg_kv > 1 else (None, None))
+    code = lib.flash_cross_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), ld.data_ptr(),
+        words.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (part_q, part_k,
+                                                         part_v)),
+        bsz, n, m, dim, heads, seg_q, seg_kv, float(sm_scale),
+        _build.stream_ptr(dev))
+    _build.check(code, "flash_cross_attention_backward")
+    _build.LAUNCHES["flash_cross_attention_backward"] += 1
+    return dq, dk, dv
+
+
 def flash_cross_attention_backward(q, k, v, kv_valid, sm_scale: float, out,
                                    lse, dout):
     """(dq, dk, dv) of the attention for the upstream gradient dout
@@ -136,27 +228,8 @@ def flash_cross_attention_backward(q, k, v, kv_valid, sm_scale: float, out,
     if q.device.type == "cpu":
         return flash_cross_attention_backward_plain(q, k, v, kv_valid,
                                                     sm_scale, dout)
-    q, k, v, kv_valid = _checked(q, k, v, kv_valid)
-    if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (q.shape[0], q.shape[1], q.shape[3]):
-        raise ValueError(f"bad shapes out{tuple(out.shape)} "
-                         f"dout{tuple(dout.shape)} lse{tuple(lse.shape)}")
-    if any(t.dtype != torch.float32 or t.device != q.device
-           for t in (out, lse, dout)):
-        raise TypeError("out, lse, dout must be float32 on q's device")
-    out, lse, dout = (t.contiguous() for t in (out, lse, dout))
-    bsz, n, dim, heads = q.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
-    lib = _build.library("flash_cross_attention_bwd.cu")
-    code = lib.flash_cross_attention_bwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bsz, n, k.shape[1],
-        dim, heads, float(sm_scale), _build.stream_ptr(q.device))
-    _build.check(code, "flash_cross_attention_backward")
-    _build.LAUNCHES["flash_cross_attention_backward"] += 1
-    return dq, dk, dv
+    return _backward_kernel(*_checked(q, k, v, kv_valid), sm_scale, out, lse,
+                            dout)
 
 
 class _FlashCrossAttention(torch.autograd.Function):

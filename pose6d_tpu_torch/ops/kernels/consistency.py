@@ -38,6 +38,30 @@ def rank_major_segments_on(device, bsz: int, v2: int) -> int:
     return rank_major_segments(bsz, v2, _build.sm_count(device), per_sm)
 
 
+# csrc/masked_consistency_sum.cu's tiling (checked against the built
+# kernel): columns per block, rows per staged tile
+PCM_COL_TILE, PCM_ROW_TILE = 256, 256
+
+
+def consistency_segments(bsz: int, p: int, sms: int,
+                         blocks_per_sm: int) -> int:
+    """The number of row segments S the PC-major kernel splits its row
+    walk into (_build.plan_segments over its column blocks x B and its
+    row tiles): at least two blocks on each of `sms` SMs. Segment s
+    takes the row tiles _build.segment_tiles(tiles, S, s)."""
+    return _build.plan_segments(-(-p // PCM_COL_TILE) * bsz,
+                                -(-p // PCM_ROW_TILE), sms, blocks_per_sm)
+
+
+def consistency_segments_on(device, bsz: int, p: int) -> int:
+    """consistency_segments for the built kernel on the card `device`
+    (its tiling and blocks per SM asked from the library once)."""
+    per_sm = _build.kernel_tiles(
+        _build.library("masked_consistency_sum.cu").masked_consistency_tiles,
+        (PCM_COL_TILE, PCM_ROW_TILE), "masked_consistency_sum")
+    return consistency_segments(bsz, p, _build.sm_count(device), per_sm)
+
+
 def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
     """sum_i w_i * |d_cad(i, j) - dpc(i mod v2, j mod v2)| per pair j,
     one frame at a time (the (P, P) tables are 420 MB at P = 10240)."""
@@ -113,11 +137,19 @@ def masked_consistency_sum(ca, cb, w):
     if not (cb.device == w.device == ca.device):
         raise ValueError("ca, cb, w must be on one device")
     ca, cb, w = (t.contiguous() for t in (ca, cb, w))
-    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
     lib = _build.library("masked_consistency_sum.cu")
+    segments = consistency_segments_on(w.device, bsz, p)
+    out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
+    # each point packed as two float4 rows (ca, w) and (cb, finite flag),
+    # and the segments' partial sums (added in segment order by the
+    # kernel's last pass)
+    rows = torch.empty((bsz, p, 8), dtype=torch.float32, device=w.device)
+    part = (torch.empty((bsz, segments, p), dtype=torch.float32,
+                        device=w.device) if segments > 1 else None)
     code = lib.masked_consistency_sum_f32(
-        ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(), bsz, p,
-        _build.stream_ptr(w.device))
+        ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(),
+        rows.data_ptr(), None if part is None else part.data_ptr(), bsz, p,
+        segments, _build.stream_ptr(w.device))
     _build.check(code, "masked_consistency_sum")
     _build.LAUNCHES["masked_consistency_sum"] += 1
     return out

@@ -15,6 +15,7 @@ from pose6d_tpu.models.attention import MultiHeadedAttention as JaxMHA
 from pose6d_tpu.ops import nn as jax_nn
 from pose6d_tpu.ops.pallas import (consistency_sum_rank_major as jax_rm,
                                    masked_argmin_cdist as jax_argmin,
+                                   masked_consistency_sum as jax_mcs,
                                    masked_topk_cdist as jax_topk)
 from pose6d_tpu_torch.models.attention import MultiHeadedAttention
 from pose6d_tpu_torch.models.weights import (flax_from_state_dict,
@@ -22,15 +23,18 @@ from pose6d_tpu_torch.models.weights import (flax_from_state_dict,
 from pose6d_tpu_torch.ops import nn as torch_nn
 from pose6d_tpu_torch.ops.kernels._build import segment_tiles
 from pose6d_tpu_torch.ops.kernels.attention import (
-    FLASH_KEY_TILE, FLASH_MAX_SEGMENT_TILES, flash_queries_per_block,
-    flash_segments)
-from pose6d_tpu_torch.ops.kernels.consistency import (RM_COL_TILE,
-                                                      RM_ROW_TILE,
-                                                      rank_major_segments)
+    FLASH_BWD_ROWS, FLASH_BWD_TILE, FLASH_KEY_TILE, FLASH_MAX_SEGMENT_TILES,
+    flash_backward_segments, flash_cross_attention_plain,
+    flash_queries_per_block, flash_segments)
+from pose6d_tpu_torch.ops.kernels.consistency import (
+    PCM_COL_TILE, PCM_ROW_TILE, RM_COL_TILE, RM_ROW_TILE,
+    consistency_segments, rank_major_segments)
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
                                           flash_cross_attention,
                                           flash_cross_attention_backward,
                                           masked_argmin_cdist,
+                                          masked_consistency_sum,
+                                          masked_consistency_sum_plain,
                                           masked_topk_cdist)
 
 torch.set_num_threads(2)
@@ -268,6 +272,44 @@ def test_flash_segments_cover_every_key_tile(bsz, n, m, heads):
         assert q_blocks * g >= min(2 * sms, q_blocks * tiles)
 
 
+@pytest.mark.parametrize("bsz,n,m", [(1, 5120, 2048), (1, 2048, 5120),
+                                     (8, 5120, 2048), (8, 2048, 5120),
+                                     (16, 5120, 2048), (3, 2000, 5002),
+                                     (2, 7, 100000)])
+def test_flash_backward_segments_cover_every_tile(bsz, n, m):
+    """Both kernels of the backward: the dq kernel's key walk and the dkv
+    kernel's walk over the queries padded to whole dq blocks."""
+    q_blocks = -(-n // FLASH_BWD_ROWS) * bsz
+    k_blocks = -(-m // FLASH_BWD_ROWS) * bsz
+    k_tiles = -(-m // FLASH_BWD_TILE)
+    q_tiles = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS // FLASH_BWD_TILE
+    for sms, per_sm in CARDS:
+        gq, gkv = flash_backward_segments(bsz, n, m, sms, per_sm, per_sm)
+        for g, tiles, blocks in ((gq, k_tiles, q_blocks),
+                                 (gkv, q_tiles, k_blocks)):
+            assert 1 <= g <= tiles
+            assert _each_tile_once(tiles, g)
+            assert len(segment_tiles(tiles, g, 0)) <= FLASH_MAX_SEGMENT_TILES
+            # two blocks on every SM, as far as the tiles allow
+            assert blocks * g >= min(2 * sms, blocks * tiles)
+    if (bsz, n, m) == (8, 2048, 5120):   # the train step's PC -> CAD call
+        assert flash_backward_segments(8, 2048, 5120, 132, 3, 3)[0] > 1
+
+
+@pytest.mark.parametrize("bsz,p", [(1, 10240), (16, 10240), (1, 3110),
+                                   (3, 2000), (2, 37), (16, 5)])
+def test_consistency_segments_cover_every_row_tile(bsz, p):
+    tiles = -(-p // PCM_ROW_TILE)
+    col_blocks = -(-p // PCM_COL_TILE) * bsz
+    for sms, per_sm in CARDS:
+        s = consistency_segments(bsz, p, sms, per_sm)
+        assert 1 <= s <= tiles
+        assert _each_tile_once(tiles, s)
+        assert col_blocks * s >= min(2 * sms, col_blocks * tiles)
+    if (bsz, p) == (1, 10240):     # one frame of the PC-major filter
+        assert consistency_segments(1, 10240, 132, 2) > 1
+
+
 def _segment_state(q, k, v, valid, scale, keys):
     """A segment's partial state over the keys `keys`, as the forward
     kernel writes it: per (frame, query, head) the running max m (-inf
@@ -466,3 +508,161 @@ def test_cpu_tensors_never_launch():
     masked_topk_cdist(_t(a), _t(b), _t(valid), k=5)
     masked_argmin_cdist(_t(a), _t(b), _t(valid))
     assert LAUNCHES == before
+
+
+def _tf32_split(x):
+    """x = hi + lo as the backward kernel splits an f32 operand: hi is x
+    truncated to TF32 (its low 13 bits dropped), lo the exact rest as the
+    tensor core reads it (its low 13 bits dropped too)."""
+    x = np.ascontiguousarray(x, np.float32)
+    hi = (x.view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+    lo = ((x - hi).view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+    return hi, lo
+
+
+def _mma3(a, b):
+    """a @ b as the kernel's 3xTF32 mma.sync chain computes it: per step
+    of 8 along k, the products a_lo b_hi, a_hi b_lo and a_hi b_hi (each
+    exact in float64) added to an f32 accumulator one mma at a time."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = (acc + x[:, ks].astype(np.float64)
+                   @ y[ks].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def _backward_3xtf32(q, k, v, valid, scale, out, lse, dout):
+    """The backward kernel's arithmetic on the CPU (numpy f32, (B, N, 16,
+    H) layout): a row with dout all zero or L = -inf takes L = +inf;
+    P = exp2(s * scale log2 e - L log2 e) (an f32 FMA, then exp2), 0 on
+    masked keys; D = dout . out; dS = P (dP - D); every product 3xTF32;
+    masked keys' dk, dv written as zeros."""
+    log2e = np.float32(np.log2(np.e))
+    sl2e = np.float32(np.float32(scale) * log2e)
+    dq, dk, dv = (np.zeros_like(t) for t in (q, k, v))
+    for b in range(q.shape[0]):
+        live = (dout[b] != 0).any((1, 2))
+        kv = valid[b]
+        for h in range(q.shape[3]):
+            qh, kh, vh, gh, oh = (t[b, :, :, h] for t in (q, k, v, dout, out))
+            lh = lse[b, :, h]
+            l2 = np.where(live & (lh != -np.inf), (lh * log2e).astype(
+                np.float32), np.float32(np.inf))
+            d = (gh * oh).sum(-1, dtype=np.float32)
+            s = _mma3(qh, kh.T)
+            x = (s.astype(np.float64) * sl2e - l2[:, None]).astype(np.float32)
+            p = np.where(kv[None], np.exp2(x), np.float32(0)).astype(
+                np.float32)
+            ds = (p * (_mma3(gh, vh.T) - d[:, None])).astype(np.float32)
+            dq[b, :, :, h] = _mma3(ds, kh) * np.float32(scale)
+            dk[b, :, :, h] = np.where(kv[:, None], _mma3(ds.T, qh)
+                                      * np.float32(scale), 0)
+            dv[b, :, :, h] = np.where(kv[:, None], _mma3(p.T, gh), 0)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("n,m", [(80, 48), (48, 80)])
+def test_backward_3xtf32_emulation_within_chip_tolerance(n, m):
+    """The backward kernel's precision, emulated, against float64
+    autograd within chip_smoke.py's tolerance for it (1e-4 * max|ref| +
+    1e-6 per tensor): frame 0 with padded queries (dout = 0 there) and a
+    prefix of valid keys, frame 1 without keys, frame 2 random masks."""
+    rng = np.random.default_rng(21)
+    bsz, scale = 3, 0.25
+    q, k, v = (rng.normal(size=(bsz, s, 16, 2)).astype(np.float32)
+               for s in (n, m, m))
+    valid = rng.random((bsz, m)) > 0.4
+    valid[0] = np.arange(m) < m - 11
+    valid[1] = False
+    q_valid = rng.random((bsz, n)) > 0.2
+    q_valid[0] = np.arange(n) < n - 9
+    dout = (rng.normal(size=(bsz, n, 16, 2)) * q_valid[..., None, None]
+            ).astype(np.float32)
+    tq, tk, tv, tvalid = (torch.as_tensor(x) for x in (q, k, v, valid))
+    out = flash_cross_attention_plain(tq, tk, tv, tvalid, scale)
+    s32 = torch.einsum("bndh,bmdh->bnhm", tq, tk) * scale
+    lse = torch.logsumexp(s32.masked_fill(~tvalid[:, None, None], -np.inf),
+                          -1)
+    got = _backward_3xtf32(q, k, v, valid, scale, out.numpy(), lse.numpy(),
+                           dout)
+    want = flash_cross_attention_backward(
+        *(torch.as_tensor(x).double() for x in (q, k, v)), tvalid, scale,
+        None, None, torch.as_tensor(dout).double())
+    for a, b in zip(got, want):
+        b = b.numpy()
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max() + 1e-6)
+    assert not got[0][1].any() and not got[1][~valid].any() \
+        and not got[2][~valid].any()
+    assert not got[0][~q_valid].any()     # dead rows take L = +inf
+
+
+@pytest.mark.parametrize("masks", ["prefix", "random"])
+def test_backward_skips_are_exact(masks):
+    """What the backward kernel skips contributes exactly nothing, as the
+    plain backward computes it: query rows with dout = 0 get dq = 0 and
+    masked keys dk = dv = 0, bit for bit; and dropping those rows and
+    keys leaves the other gradients unchanged to f32 rounding."""
+    rng = np.random.default_rng(22)
+    bsz, n, m = 2, 72, 40
+    q, k, v = (torch.as_tensor(rng.normal(size=(bsz, s, 16, 2)).astype(
+        np.float32)) for s in (n, m, m))
+    if masks == "prefix":
+        live = torch.arange(n) < 50
+        valid = torch.arange(m) < 30
+    else:
+        live = torch.as_tensor(rng.random(n) > 0.3)
+        valid = torch.as_tensor(rng.random(m) > 0.3)
+    live, valid = live.expand(bsz, n), valid.expand(bsz, m).clone()
+    dout = torch.as_tensor(rng.normal(size=(bsz, n, 16, 2)).astype(
+        np.float32)) * live[..., None, None]
+    dq, dk, dv = flash_cross_attention_backward(q, k, v, valid, 0.25, None,
+                                                None, dout)
+    assert not dq[~live].any()
+    assert not dk[~valid].any() and not dv[~valid].any()
+    # the live queries and valid keys alone
+    li, vi = live[0], valid[0]
+    sq, sk, sv = flash_cross_attention_backward(
+        q[:, li], k[:, vi], v[:, vi], valid[:, vi], 0.25, None, None,
+        dout[:, li])
+    for a, b in ((dq[:, li], sq), (dk[:, vi], sk), (dv[:, vi], sv)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("live", [[64, 64], [50, 13]])
+def test_masked_consistency_plain_matches_pallas_pc_major(live):
+    """PC-major inputs as the filter builds them, on two frames: pair
+    index = PC point * 5 + rank, cb in groups of 5 equal points, CAD
+    endpoints drawn from 96 points (nearby PC points share candidates,
+    so many pairs are a point and itself), live rows a prefix of PC
+    points; against the Pallas kernel in interpret mode per frame."""
+    rng = np.random.default_rng(23)
+    v2, k = 64, 5
+    p = v2 * k
+    cad = (rng.normal(size=(2, 96, 3)) * 3).astype(np.float32)
+    own = np.arange(v2) % 96
+    pc = cad[:, own] + rng.normal(size=(2, v2, 3)).astype(np.float32) * 0.1
+    pick = rng.integers(0, 96, size=(2, v2, k))
+    pick[..., 0] = own
+    ca = np.stack([cad[f][pick[f].reshape(-1)] for f in range(2)])
+    cb = np.repeat(pc + np.float32(100.0), k, axis=1).astype(np.float32)
+    w = np.stack([np.repeat((np.arange(v2) < n).astype(np.float32), k)
+                  for n in live])
+    before = dict(LAUNCHES)
+    out = masked_consistency_sum(*(torch.as_tensor(x) for x in (ca, cb, w)))
+    assert LAUNCHES == before
+    torch.testing.assert_close(out, masked_consistency_sum_plain(
+        *(torch.as_tensor(x) for x in (ca, cb, w))), rtol=0, atol=0)
+    for f in range(2):
+        ref = jax_mcs(jnp.asarray(ca[f]), jnp.asarray(cb[f]),
+                      jnp.asarray(w[f]), block_i=64, block_j=64,
+                      interpret=True)
+        # both expand |x - y|^2 as x^2 - 2xy + y^2: with the PC side ~100
+        # cm out that cancels to ~eps * 1e4 in d^2 (~3e-2 in d for equal
+        # points); sums of <= 320 terms of size ~5 in another order
+        np.testing.assert_allclose(out[f].numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=5e-2)
