@@ -6,12 +6,16 @@ Builds the port's CUDA kernels from csrc/ (into build/), holds each
 kernel against its plain PyTorch version at the main path's shapes
 (batch 16; the serve path's kernels also at batch 1 and on edge inputs,
 the masked cdist kernels also on ICP's coarse shape) and counts the
-instructions of the issue-bound kernels' inner loops, serves cached-mode
-pose requests on the two committed LM frames through
-Predictor(device="cuda") and checks them against the port's own CPU run,
-then times a batch of 16 frames and trains. Each phase prints
-one JSON line; a failure anywhere raises. The line before the last is
-the card's name and power limit (nvidia-smi); the last line is
+instructions of the issue-bound kernels' inner loops. Then the online
+path: two rendered 640 x 480 depth frames of random_shape meshes through
+Predictor(device="cuda").predict (depth -> cloud -> device LBO -> pose ->
+flip disambiguation), timed per stage, held stage by stage against the
+port's CPU run, and a batch of 16 through candidate_select_pose ->
+disambiguate_pose_depth. Then cached-mode pose requests on the two
+committed LM frames through predict_with_operators, checked against the
+port's own CPU run, a timed batch of 16 frames, and training. Each phase
+prints one JSON line; a failure anywhere raises. The line before the
+last is the card's name and power limit (nvidia-smi); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
@@ -45,6 +49,8 @@ F32_EPS = 2.0 ** -24
 PATH_KERNELS = {
     "serve": ("flash_cross_attention", "consistency_sum_rank_major",
               "masked_topk_cdist", "masked_argmin_cdist"),
+    "online": ("flash_cross_attention", "consistency_sum_rank_major",
+               "masked_topk_cdist", "masked_argmin_cdist"),
     "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
     "train": ("flash_cross_attention", "flash_cross_attention_backward",
               "masked_argmin_cdist"),
@@ -956,8 +962,416 @@ def load_frames():
 
 
 def rot_deg(Ra, Rb) -> float:
-    c = (np.trace(Ra.T @ Rb) - 1) / 2
-    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+    """The angle between two rotations, from |Ra - Rb|_F = sqrt(8)
+    sin(angle / 2) in float64 (exact 0 for equal matrices; the arccos of
+    the trace cannot resolve angles below ~0.03 deg in f32)."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(1.0, d / np.sqrt(8.0)))))
+
+
+# the online frames: (random_shape seed, degraded?). Seed 38 at its pose
+# covers 16675 pixels after the mask's erosion, more than the 16384
+# points the backprojection keeps; seed 3's frame gets sensor noise and
+# holes
+ONLINE_FRAMES = ((38, False), (3, True))
+ONLINE_DRAW_BLOCKS = 131072 // 512      # RANSAC blocks of a request
+# masked_argmin_cdist launches of one online request: base ICP 30 + 1,
+# the flip bank 4 coarse + 1 fine + 1 final, the winner 5 + 5 + 1
+ONLINE_LAUNCHES = {"flash_cross_attention": 2,
+                   "consistency_sum_rank_major": 3,
+                   "masked_topk_cdist": 1, "masked_argmin_cdist": 48}
+
+
+def render_online_frames() -> list:
+    """Two 640 x 480 depth frames of random_shape meshes (4610 vertices,
+    padded to the CAD width 5120) at poses drawn as bench.py draws them,
+    with the LM intrinsics: uint16 mm depth, depth_scale 1, mask = depth
+    > 0; the second frame degraded (1 mm noise, 2 % holes). CAD operators
+    from point_cloud_operators(verts * 0.1)."""
+    import warnings
+    from scipy.spatial.transform import Rotation
+
+    from pose6d_tpu_torch.data.shapes import random_shape
+    from pose6d_tpu_torch.data.synth import degrade_depth, rasterize_depth
+    from pose6d_tpu_torch.ops.geometry import erode_mask
+    from pose6d_tpu_torch.spectral.operators import point_cloud_operators
+    frames = []
+    for seed, degraded in ONLINE_FRAMES:
+        verts, faces = random_shape(seed)
+        rng = np.random.default_rng(seed * 1000)
+        R = Rotation.from_rotvec(rng.normal(size=3) * 0.9).as_matrix()
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(900, 1200)])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            depth = rasterize_depth(verts, faces, R, t)
+        if degraded:
+            depth = degrade_depth(depth, rng, noise_mm=1.0, hole_frac=0.02)
+        depth = np.clip(depth, 0, 65535).astype(np.uint16)
+        mask = depth > 0
+        t0 = time.time()
+        cad_ops = point_cloud_operators(verts * 0.1)
+        frames.append({
+            "obj": seed, "degraded": degraded, "depth": depth, "mask": mask,
+            "R_gt": R, "t_gt": t * 0.1, "cad_ops": cad_ops,
+            "ops_s": time.time() - t0,
+            "eroded_pixels": int(erode_mask(torch.as_tensor(mask)).sum()),
+            "diam": float(np.linalg.norm(cad_ops["xyz"].max(0)
+                                         - cad_ops["xyz"].min(0)))})
+    if max(f["eroded_pixels"] for f in frames) <= 16384:
+        raise AssertionError("no online frame exceeds the 16384 points that "
+                             "backprojection keeps")
+    return frames
+
+
+def online_stages(pred, frame, draws, timed: bool) -> dict:
+    """One online request's stages, as Predictor.predict runs them, on
+    pred's device: backprojection, outlier mask, FPS, graph Laplacian,
+    LOBPCG, model and pose (filter, RANSAC with `draws`, ICP), flip
+    disambiguation. Returns the intermediates (on the CPU) and, when
+    `timed` (card only), CUDA-event ms per stage with the device
+    synchronised at each stage's end."""
+    from pose6d_tpu_torch.api import MAX_RAW, pose_from_operators
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.ops import geometry, sampling
+    from pose6d_tpu_torch.solvers.multistart import disambiguate_pose_depth
+    from pose6d_tpu_torch.spectral import device_lbo
+    dev = pred.device
+    ms, marks = {}, []
+
+    def mark(name):
+        if timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            torch.cuda.synchronize()
+            marks.append((name, ev))
+
+    depth = torch.as_tensor(frame["depth"].astype(np.float32),
+                            device=dev)[None]
+    K = torch.as_tensor(default_intrinsics(), dtype=torch.float32,
+                        device=dev)[None]
+    mask = torch.as_tensor(frame["mask"], device=dev)[None]
+    obj = frame["obj"]
+    cad = {k: v[None] for k, v in pred.cad_bank[obj].items()}
+    diam = torch.tensor([pred._diam[obj]], device=dev)
+    with torch.inference_mode():
+        mark("start")
+        pts, valid = geometry.backproject_depth(depth, K, 1000.0, mask,
+                                                max_points=MAX_RAW)
+        mark("backproject")
+        keep = geometry.statistical_outlier_mask(pts, valid)
+        mark("outlier_mask")
+        idx, sel = sampling.farthest_point_sample(pts, keep, pred.max_pc)
+        pc = torch.gather(pts, 1, idx[..., None].expand(-1, -1, 3))
+        pc = torch.where(sel[..., None], pc, 0.0)
+        pad = pred.v_pc - pred.max_pc
+        pc = torch.nn.functional.pad(pc, (0, 0, 0, pad))
+        pcv = torch.nn.functional.pad(sel, (0, pad))
+        mark("fps")
+        L, mass = device_lbo.graph_laplacian(pc, pcv)
+        mark("laplacian")
+        evals, evecs, iters = device_lbo.lobpcg_smallest(
+            L, mass, pcv, k_eig=pred.model.cfg.k_eig,
+            iters=pred._lobpcg_iters)
+        mark("lobpcg")
+        ops = {"xyz": pc, "mass": mass, "evals": evals, "evecs": evecs,
+               "valid": pcv}
+        out = pose_from_operators(pred.model, cad, ops, diam,
+                                  n_hypotheses=pred._rh,
+                                  icp_iters=pred._icp_iters,
+                                  uniforms=torch.as_tensor(draws,
+                                                           device=dev)[None])
+        mark("model_and_pose")
+        fix = disambiguate_pose_depth(
+            cad["xyz"], cad["valid"], pc, pcv, out["R"], out["t"], diam, K,
+            depth * 0.1, mask, sym_rots=pred._sym_rots[obj][None])
+        mark("disambiguation")
+    on_device = [x.device.type for x in (pts, keep, idx, L, evals, evecs,
+                                         out["R"], fix["R"])]
+    if dev.type == "cuda" and set(on_device) != {"cuda"}:
+        raise AssertionError(f"an online stage left the card: {on_device}")
+    for (_, a), (name, b) in zip(marks[:-1], marks[1:]):
+        ms[name] = a.elapsed_time(b)
+    return {"pts": pts[0].cpu(), "valid": valid[0].cpu(),
+            "keep": keep[0].cpu(), "idx": idx[0].cpu(),
+            "sel": sel[0].cpu(), "evals": evals[0].cpu(),
+            "lobpcg_iters": iters[0], "R": fix["R"][0].cpu().numpy(),
+            "t": fix["t"][0].cpu().numpy(),
+            "hypothesis": int(fix["hypothesis"][0]),
+            "base_R": out["R"][0].cpu().numpy(),
+            "ops": {k: v for k, v in ops.items()}, "ms": ms}
+
+
+def cpu_copy(model):
+    """The model's weights in a new module on the CPU."""
+    cpu_model = type(model)(model.cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    return cpu_model.eval()
+
+
+def pose_errors(frame, R, t, bank) -> dict:
+    from pose6d_tpu_torch.ops.symmetry import sym_rotation_error_deg
+    return {"rot_err_deg": rot_deg(R, frame["R_gt"]),
+            "rot_err_mod_sym_deg": sym_rotation_error_deg(
+                frame["R_gt"], R, bank),
+            "t_err_frac_diam": float(np.linalg.norm(t - frame["t_gt"])
+                                     / frame["diam"])}
+
+
+def online_request(frames, model, gpu_line: str):
+    """Predictor(mode="online", device="cuda").predict on both frames:
+    round 0 warms up, round 1 is timed (host clock around a synchronised
+    call). Then each frame's stages alone, CUDA events. Returns the
+    predictor, the draws, the card's results and stage outputs, and the
+    launch counts of the predict() calls."""
+    from pose6d_tpu_torch.api import Predictor
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.ops.kernels import reset_launches
+    bank = {f["obj"]: f["cad_ops"] for f in frames}
+    rng = np.random.default_rng(1)
+    draws = {f["obj"]: rng.random((ONLINE_DRAW_BLOCKS, 512, 3),
+                                  dtype=np.float32) for f in frames}
+    t0 = time.perf_counter()
+    pred = Predictor(model, bank, mode="online", device="cuda")
+    init_s = time.perf_counter() - t0
+    K = default_intrinsics()
+    reset_launches()
+    results = {}
+    for rnd in range(2):
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred.predict(f["depth"], K, 1.0, [f["mask"]], [f["obj"]],
+                               uniforms=[draws[f["obj"]]])[0]
+            ms = 1e3 * (time.perf_counter() - t0)
+            results[f["obj"]] = dict(out, ms=ms)
+            if rnd == 1:
+                emit("online_request", obj=f["obj"], degraded=f["degraded"],
+                     round=rnd, ms=ms, gpu=gpu_line,
+                     flip_hypothesis=int(out["flip_hypothesis"]),
+                     n_inliers=int(out["n_inliers"]),
+                     **pose_errors(f, out["R"], out["t"],
+                                   pred._sym_rots[f["obj"]].cpu().numpy()))
+    counts = launched(PATH_KERNELS["online"], "online")
+    per_frame = {k: counts[k] / (2 * len(frames)) for k in ONLINE_LAUNCHES}
+    emit("online_launches", per_frame=per_frame, expected=ONLINE_LAUNCHES,
+         requests=2 * len(frames),
+         note="argmin: base ICP 30 iterations + 1 final; flip bank 4 coarse "
+              "+ 1 fine + 1 final (one launch for all 6 hypotheses); "
+              "winner 5 coarse + 5 fine + 1 final")
+    if per_frame != {k: float(v) for k, v in ONLINE_LAUNCHES.items()}:
+        raise AssertionError(f"online launches per frame {per_frame}, "
+                             f"expected {ONLINE_LAUNCHES}")
+    stages = {}
+    for f in frames:
+        online_stages(pred, f, draws[f["obj"]], timed=True)   # warm
+        st = online_stages(pred, f, draws[f["obj"]], timed=True)
+        stages[f["obj"]] = st
+        out = results[f["obj"]]
+        if not (rot_deg(st["R"], out["R"]) <= 0.1 and np.linalg.norm(
+                st["t"] - out["t"]) <= 1e-3 * f["diam"]):
+            raise AssertionError("online_stages does not reproduce predict()")
+        emit("online_stages", obj=f["obj"], gpu=gpu_line,
+             timing="CUDA-event ms per stage, device synchronised at each "
+                    "stage's end (host gaps included)",
+             ms=st["ms"], total_ms=sum(st["ms"].values()),
+             raw_points=int(st["valid"].sum()),
+             kept_points=int(st["keep"].sum()),
+             eroded_mask_pixels=f["eroded_pixels"],
+             sampled_points=int(st["sel"].sum()),
+             lobpcg_iterations=st["lobpcg_iters"],
+             flip_hypothesis=st["hypothesis"],
+             stages_vs_predict_deg=rot_deg(st["R"], results[f["obj"]]["R"]),
+             init_s=init_s)
+    return pred, draws, results, stages, counts
+
+
+def covering_radius(pts, keep, idx) -> float:
+    """The largest distance from a kept point to its nearest pick, f64."""
+    p = pts[keep].double()
+    sel = pts[idx].double()
+    return float(torch.cdist(p, sel).min(-1).values.max())
+
+
+def online_cpu_agreement(frames, model, pred, draws, results, stages):
+    """The same requests through the port on the CPU (predict()'s stages,
+    online_stages, which on the card give predict()'s pose), with the
+    same LOBPCG start block and RANSAC draws: backprojection exact,
+    outlier keep masks equal, FPS picks counted (when any differ, the
+    covering radii within 1 %), the first 30 eigenvalues within 1e-3
+    relative (the null mode within 1e-3 of the first nonzero one), the
+    card's predict() pose within 1 deg and 1 % of the diameter."""
+    from pose6d_tpu_torch.api import Predictor
+    bank = {f["obj"]: f["cad_ops"] for f in frames}
+    cpu = Predictor(cpu_copy(model), bank, mode="online", device="cpu")
+    for f in frames:
+        t0 = time.perf_counter()
+        st = online_stages(cpu, f, draws[f["obj"]], timed=False)
+        cpu_s = time.perf_counter() - t0
+        gpu, out = stages[f["obj"]], results[f["obj"]]
+        ref = {"R": st["R"], "t": st["t"], "flip_hypothesis": st["hypothesis"]}
+        exact = torch.equal(gpu["pts"], st["pts"]) and \
+            torch.equal(gpu["valid"], st["valid"])
+        keep_diff = int((gpu["keep"] != st["keep"]).sum())
+        pick_diff = int((gpu["idx"] != st["idx"]).sum())
+        radii = [covering_radius(st["pts"], st["keep"], s["idx"])
+                 for s in (gpu, st)]
+        e_g, e_c = gpu["evals"][:30].double(), st["evals"][:30].double()
+        scale = e_c.abs().clamp_min(float(e_c[1]))
+        eval_rel = float(((e_g - e_c).abs() / scale).max())
+        dr = rot_deg(out["R"], ref["R"])
+        dt = float(np.linalg.norm(out["t"] - ref["t"]) / f["diam"])
+        emit("online_cpu_agreement", obj=f["obj"], points_exact=exact,
+             keep_mask_differing=keep_diff, fps_picks_differing=pick_diff,
+             covering_radius_cm=radii, eval_max_rel_diff_first30=eval_rel,
+             lobpcg_iterations=[gpu["lobpcg_iters"], st["lobpcg_iters"]],
+             rot_deg=dr, t_frac_diam=dt,
+             flip_hypothesis=[int(out["flip_hypothesis"]),
+                              int(ref["flip_hypothesis"])],
+             cpu_s=cpu_s,
+             tol="points exact, keep 0 differing, covering radius 1 %, "
+                 "evals 1e-3 rel, pose 1 deg and 1 % diam")
+        if not (exact and keep_diff == 0 and eval_rel <= 1e-3
+                and dr <= 1.0 and dt <= 0.01
+                and (pick_diff == 0
+                     or abs(radii[0] - radii[1]) <= 0.01 * radii[1])):
+            raise AssertionError(f"online card and CPU disagree on obj "
+                                 f"{f['obj']}")
+
+
+def disambiguation_batch(frames, model, pred, stages, dev, gpu_line: str):
+    """B = 16 (8 copies of each frame, own RANSAC draws each) through
+    candidate_select_pose -> disambiguate_pose_depth, bench.py's recipe
+    after its data layer (4096 hypotheses, 30 ICP iterations at coarse
+    stride 4, the flip bank), on the operators of the card's online
+    stage; CUDA-event ms per batch and per stage. Held to the port's CPU
+    run of the same batch (in chunks of 4 frames): pose within 1 deg and
+    1 % of the diameter, per frame."""
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.solvers.candidates import candidate_select_pose
+    from pose6d_tpu_torch.solvers.multistart import disambiguate_pose_depth
+    picks = [frames[i % len(frames)] for i in range(BATCH)]
+
+    def batch_on(d, sel):
+        cad = {k: torch.stack([pred.cad_bank[picks[i]["obj"]][k]
+                               for i in sel]).to(d)
+               for k in ("xyz", "mass", "evals", "evecs", "valid")}
+        pc = {k: torch.cat([stages[picks[i]["obj"]]["ops"][k]
+                            for i in sel]).to(d)
+              for k in ("xyz", "mass", "evals", "evecs", "valid")}
+        n = len(sel)
+        return dict(
+            cad=cad, pc=pc,
+            diam=torch.tensor([pred._diam[picks[i]["obj"]] for i in sel],
+                              device=d),
+            K=torch.as_tensor(default_intrinsics(), dtype=torch.float32,
+                              device=d).expand(n, 3, 3),
+            obs=torch.stack([torch.as_tensor(picks[i]["depth"].astype(
+                np.float32) * 0.1) for i in sel]).to(d),
+            mask=torch.stack([torch.as_tensor(picks[i]["mask"])
+                              for i in sel]).to(d),
+            rots=torch.stack([pred._sym_rots[picks[i]["obj"]]
+                              for i in sel]).to(d),
+            u=torch.as_tensor(draws16[sel]).to(d))
+
+    draws16 = np.random.default_rng(2).random((BATCH, 8, 512, 3),
+                                              dtype=np.float32)
+
+    def run(b, m, events=None):
+        with torch.inference_mode():
+            sel = candidate_select_pose(
+                m, b["cad"], b["pc"], b["diam"], n_fmap=m.cfg.n_fmap,
+                ransac_hypotheses=4096, icp_iters=30, uniforms=b["u"])
+            if events:
+                events[1].record()
+            fix = disambiguate_pose_depth(
+                b["cad"]["xyz"], b["cad"]["valid"], b["pc"]["xyz"],
+                b["pc"]["valid"], sel["R"], sel["t"], b["diam"], b["K"],
+                b["obs"], b["mask"], sym_rots=b["rots"])
+        return fix
+
+    full = batch_on(dev, list(range(BATCH)))
+    run(full, model)
+    reps, stage = 3, {"candidate_select": 0.0, "disambiguation": 0.0}
+    reset_launches()
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = run(full, model, ev)
+        ev[2].record()
+        torch.cuda.synchronize()
+        stage["candidate_select"] += ev[0].elapsed_time(ev[1]) / reps
+        stage["disambiguation"] += ev[1].elapsed_time(ev[2]) / reps
+    counts = {k: v / reps for k, v in LAUNCHES.items()}
+    R, t = out["R"].cpu().numpy(), out["t"].cpu().numpy()
+    if not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError("non-finite pose in the disambiguation batch")
+    cpu_model = cpu_copy(model)
+    t0 = time.perf_counter()
+    worst_r, worst_t, hyp_cpu = 0.0, 0.0, []
+    for lo in range(0, BATCH, 4):
+        sel = list(range(lo, lo + 4))
+        ref = run(batch_on(torch.device("cpu"), sel), cpu_model)
+        hyp_cpu += ref["hypothesis"].tolist()
+        for j, i in enumerate(sel):
+            worst_r = max(worst_r, rot_deg(R[i], ref["R"][j].numpy()))
+            worst_t = max(worst_t, float(np.linalg.norm(
+                t[i] - ref["t"][j].numpy()) / picks[i]["diam"]))
+    errs = [pose_errors(picks[i], R[i], t[i],
+                        pred._sym_rots[picks[i]["obj"]].cpu().numpy())
+            for i in range(BATCH)]
+    emit("disambiguation_batch", batch=BATCH, gpu=gpu_line,
+         frames="8 copies of each online frame, own RANSAC draws each",
+         ransac_hypotheses=4096, icp_iters=30, coarse_stride=4,
+         timing="CUDA-event ms, mean of 3 batches after a warm-up",
+         ms_per_batch=sum(stage.values()), stage_ms=stage,
+         frames_per_s=BATCH * 1e3 / sum(stage.values()),
+         launches_per_batch=counts,
+         flip_hypothesis=out["hypothesis"].tolist(),
+         flip_hypothesis_cpu=hyp_cpu,
+         rot_err_deg=[e["rot_err_deg"] for e in errs],
+         rot_err_mod_sym_deg=[e["rot_err_mod_sym_deg"] for e in errs],
+         cpu_agreement={"worst_rot_deg": worst_r,
+                        "worst_t_frac_diam": worst_t,
+                        "cpu_s": time.perf_counter() - t0,
+                        "tol": "1 deg, 1 % diam"})
+    if not (worst_r <= 1.0 and worst_t <= 0.01):
+        raise AssertionError("disambiguation batch: card and CPU disagree")
+
+
+def online_profile(pred, frame, draws, wall_ms: float) -> dict:
+    """Device time of one online request (torch.profiler), its host
+    syncs and the device items that took the most time. The busy share
+    divides the device time by `wall_ms`, the same request's round-1
+    wall from online_request: walls taken after a profiled window in the
+    process (serve's and train's) read slow."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred.predict(frame["depth"], default_intrinsics(), 1.0,
+                     [frame["mask"]], [frame["obj"]],
+                     uniforms=[draws[frame["obj"]]])
+        torch.cuda.synchronize()
+    syncs = {e.key: e.count for e in prof.key_averages()
+             if e.key in SYNC_CALLS}
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    if device_us == 0:
+        return {"device_busy_share": "not measured (no device time traced)"}
+    return {"round1_wall_ms": wall_ms,
+            "device_ms_per_request": device_us / 1e3,
+            "device_busy_share": device_us / (1e3 * wall_ms),
+            "top_device_ms_per_request": {
+                e.key[:60]: e.self_device_time_total / 1e3 for e in rows[:10]},
+            "device_launches_per_request": sum(e.count for e in rows),
+            "host_sync_calls_per_request": syncs}
 
 
 def serve(frames, model, dev):
@@ -971,7 +1385,7 @@ def serve(frames, model, dev):
     draws = {f["obj"]: rng.random((256, 512, 3), dtype=np.float32)
              for f in frames}
     reset_launches()
-    pred = Predictor(model, bank, device="cuda")
+    pred = Predictor(model, bank, mode="cached", device="cuda")
     gpu = {}
     for rnd in range(2):          # round 0 includes first-call set-up
         for f in frames:
@@ -997,10 +1411,7 @@ def serve(frames, model, dev):
     emit("profile", obj=frames[0]["obj"], **profile_request(pred, frames[0]))
     emit("eigh_sync", gpu=gpu_name_and_limit(), **eigh_sync_probe(dev))
 
-    cpu_model = type(model)(model.cfg)
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               model.state_dict().items()})
-    cpu_pred = Predictor(cpu_model, bank, device="cpu")
+    cpu_pred = Predictor(cpu_copy(model), bank, mode="cached", device="cpu")
     for f in frames:
         t0 = time.perf_counter()
         ref = cpu_pred.predict_with_operators(f["obj"], f["pc_ops"],
@@ -1510,6 +1921,21 @@ def main() -> int:
     rows = check_kernels(dev)
     emit("sass", **sass_loop_counts())
 
+    online = render_online_frames()
+    emit("online_frames", objects=[f["obj"] for f in online],
+         degraded=[f["degraded"] for f in online],
+         masked_pixels=[int(f["mask"].sum()) for f in online],
+         eroded_mask_pixels=[f["eroded_pixels"] for f in online],
+         cad_points=[len(f["cad_ops"]["xyz"]) for f in online],
+         diam_cm=[f["diam"] for f in online],
+         operators_s=[f["ops_s"] for f in online])
+    model = load_flax_checkpoint(ROOT / "weights" / "synth_seen.msgpack",
+                                 DPFMNet()).to(dev).eval()
+    pred, draws, results, stages, paths_online = online_request(
+        online, model, gpu_line)
+    online_cpu_agreement(online, model, pred, draws, results, stages)
+    disambiguation_batch(online, model, pred, stages, dev, gpu_line)
+
     frames = load_frames()
     emit("frames", objects=[f["obj"] for f in frames],
          cad_points=[len(f["cad_ops"]["xyz"]) for f in frames],
@@ -1517,14 +1943,15 @@ def main() -> int:
          operators_s=[f["ops_s"] for f in frames],
          note="the PLYs carry no faces: the CAD operators are point-cloud "
               "operators too (k_eig 64)")
-    model = load_flax_checkpoint(ROOT / "weights" / "synth_seen.msgpack",
-                                 DPFMNet()).to(dev).eval()
-    paths = {"serve": serve(frames, model, dev)}
+    paths = {"online": paths_online, "serve": serve(frames, model, dev)}
     batch_throughput(frames, model, dev, gpu_line)
     paths["pc_major_filter"] = pc_major_filter(frames, model, dev, gpu_line)
     items = training_items(frames)
     train_check(items, dev)
     paths["train"] = train_run(items, dev, gpu_line)
+    emit("online_profile", obj=online[0]["obj"], gpu=gpu_line,
+         **online_profile(pred, online[0], draws,
+                          results[online[0]["obj"]]["ms"]))
 
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

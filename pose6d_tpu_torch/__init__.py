@@ -2,7 +2,11 @@
 
 The JAX package ``pose6d_tpu`` is the frozen reference; this package
 imports nothing of it (nor of JAX). Its entry points run on ``cuda``
-unless the caller passes ``device="cpu"``. The hot steps of the main
-path run in hand-written CUDA C++ kernels (``csrc/``), built at first
-use; on CPU tensors each kernel's plain PyTorch version runs instead.
+unless the caller passes ``device="cpu"``: ``api.Predictor.predict``
+(the online mode: depth frame -> on-device cloud and spectral operators
+-> DPFMNet -> filter -> RANSAC -> ICP -> flip disambiguation),
+``api.Predictor.predict_with_operators`` (the cached mode) and
+``train.loop.train``. The hot steps of the main path run in hand-written
+CUDA C++ kernels (``csrc/``), built at first use; on CPU tensors each
+kernel's plain PyTorch version runs instead.
 """

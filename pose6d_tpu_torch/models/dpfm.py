@@ -25,6 +25,7 @@ class DPFMConfig:
     width: int = 64
     n_blocks: int = 2
     n_fmap: int = 30
+    k_eig: int = 64     # eigenbasis size of the online operators
     lambda_: float = 100.0
     resolvent_gamma: float = 0.5
     num_heads: int = 2

@@ -11,8 +11,6 @@ import torch
 from ..ops.nn import nearest_valid
 from .kabsch import kabsch_umeyama
 
-FINE_ITERS = 5   # full-resolution iterations at the end of a coarse run
-
 
 def _gather_rows(x, idx):
     """x (B, M, 3), idx (B, N) -> (B, N, 3)."""
@@ -20,11 +18,12 @@ def _gather_rows(x, idx):
 
 
 def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
-                    max_iter: int = 50, coarse_stride: int = 1):
+                    max_iter: int = 50, coarse_stride: int = 1,
+                    fine_iters: int = 5):
     """Refine (R0, t0) aligning src (B, N, 3) onto tgt (B, M, 3).
 
     max_corr_dist (B,) or scalar. coarse_stride > 1 matches all but the
-    last FINE_ITERS iterations against every coarse_stride-th target
+    last fine_iters iterations against every coarse_stride-th target
     point; the final iterations and the reported rmse / n_corr run at
     full resolution. Returns dict R (B, 3, 3), t (B, 3), rmse (B,),
     n_corr (B,).
@@ -49,7 +48,7 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
                 torch.where(ok[:, None], t2, t))
 
     R, t = R0.float(), t0.float()
-    n_fine = max_iter if coarse_stride <= 1 else min(FINE_ITERS, max_iter)
+    n_fine = max_iter if coarse_stride <= 1 else min(fine_iters, max_iter)
     n_coarse = max_iter - n_fine
     if n_coarse > 0:
         tg_c = tgt[:, ::coarse_stride].contiguous()
@@ -66,7 +65,7 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
 
 def icp_cloud_to_model(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
                        max_corr_dist, max_iter: int = 50,
-                       coarse_stride: int = 1):
+                       coarse_stride: int = 1, fine_iters: int = 5):
     """Partial-view refinement: match the OBSERVED cloud onto the CAD
     (bias-free for partial views), then invert back to a model->camera
     pose. Shapes as icp_point2point with src = pc, tgt = cad."""
@@ -76,7 +75,7 @@ def icp_cloud_to_model(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
     out = icp_point2point(pc_xyz, pc_valid, cad_xyz, cad_valid, Rinv,
                           -(Rinv @ t0[..., None])[..., 0],
                           max_corr_dist=max_corr_dist, max_iter=max_iter,
-                          coarse_stride=coarse_stride)
+                          coarse_stride=coarse_stride, fine_iters=fine_iters)
     Rm, tm = out["R"], out["t"]
     Rt = Rm.transpose(-1, -2)
     return {"R": Rt, "t": -(Rt @ tm[..., None])[..., 0], "rmse": out["rmse"],

@@ -1,0 +1,119 @@
+"""Symmetry-flip disambiguation by depth consistency (port of
+flip_hypotheses and disambiguate_pose_depth from
+pose6d_tpu/solvers/multistart.py).
+
+A functional map cannot tell a shape from its near-symmetric images, so
+the pipeline can land on a flipped pose. This stage refines a bank of
+flip hypotheses (the base pose composed with model-frame rotations about
+the CAD centroid) by a short ICP each, scores every refined hypothesis
+against the observed depth image (solvers/verify_pose.py), keeps the
+base unless an alternative is clearly better, and refines the winner.
+The H hypotheses of B frames run as one ICP batch of B * H.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .icp import icp_cloud_to_model
+from .verify_pose import depth_consistency_score
+
+
+def _axis_angle(axis, angle: float):
+    """Rodrigues rotations (..., 3, 3) about axes (..., 3)."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1,
+                                                       keepdim=True),
+                              min=1e-12)
+    x, y, z = axis.unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([torch.stack([zero, -z, y], -1),
+                     torch.stack([z, zero, -x], -1),
+                     torch.stack([-y, x, zero], -1)], -2)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    return eye + math.sin(angle) * K + (1 - math.cos(angle)) * (K @ K)
+
+
+def flip_hypotheses(cad_xyz, cad_valid, R0, t0, rots=None):
+    """Pose bank (Rs (B, H, 3, 3), ts (B, H, 3)) about each CAD centroid:
+    x_cam = R0 (Rh (x - mu) + mu) + t0.
+
+    rots (H, 3, 3) or (B, H, 3, 3), optional: model-frame rotations
+    (ops/symmetry.disambiguation_bank). Without it, the generic bank of
+    H = 6: identity, 180 deg about each principal axis of the CAD, and
+    +-90 deg about the dominant one."""
+    v = cad_valid.to(cad_xyz.dtype)[..., None]
+    mu = (cad_xyz * v).sum(-2) / torch.clamp(v.sum(-2), min=1.0)
+    if rots is None:
+        centered = (cad_xyz - mu[:, None]) * v
+        cov = centered.transpose(-1, -2) @ centered
+        _, axes = torch.linalg.eigh(cov)    # columns ascending
+        rots = torch.stack(
+            [torch.eye(3, dtype=cad_xyz.dtype, device=cad_xyz.device
+                       ).expand(cov.shape)]
+            + [_axis_angle(axes[..., k], math.pi) for k in range(3)]
+            + [_axis_angle(axes[..., 2], a) for a in (math.pi / 2,
+                                                      -math.pi / 2)], 1)
+    else:
+        rots = torch.as_tensor(rots, dtype=cad_xyz.dtype,
+                               device=cad_xyz.device)
+        rots = rots.expand(cad_xyz.shape[0], *rots.shape[-3:])
+    Rs = R0[:, None] @ rots
+    ts = (t0[:, None] + (R0 @ mu[..., None])[..., 0][:, None]
+          - (Rs @ mu[:, None, :, None])[..., 0])
+    return Rs, ts
+
+
+def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
+                            diam, K, observed_z, mask, icp_iters: int = 15,
+                            stride: int = 4, margin: float = 0.25,
+                            bank_iters: int = 5, icp_coarse_stride: int = 4,
+                            sym_rots=None):
+    """Flip disambiguation ranked by depth-image consistency, batched.
+
+    cad_xyz (B, V1, 3), pc_xyz (B, V2, 3) with valid masks; R0 (B, 3, 3),
+    t0 (B, 3); diam (B,); K (B, 3, 3); observed_z (B, H, W) in the CAD's
+    units (cm), 0 where invalid; mask (B, H, W); sym_rots as
+    flip_hypotheses' rots. The bank runs bank_iters ICP iterations
+    (coarse stride icp_coarse_stride, one at full resolution); hypotheses
+    1 and up are handicapped by (1 + margin); the first minimum wins and
+    gets icp_iters - bank_iters more iterations (five at full resolution).
+    Returns dict R (B, 3, 3), t (B, 3), score (B,), hypothesis (B,),
+    all_scores (B, H).
+    """
+    bsz = cad_xyz.shape[0]
+    Rs, ts = flip_hypotheses(cad_xyz, cad_valid, R0, t0, rots=sym_rots)
+    n_hyp = Rs.shape[1]
+    bank_iters = min(bank_iters, icp_iters)
+    diam = torch.as_tensor(diam, dtype=torch.float32,
+                           device=cad_xyz.device).expand(bsz)
+
+    def refine(cx, cv, px, pv, R, t, d, iters, fine_iters):
+        icp = icp_cloud_to_model(cx, cv, px, pv, R, t,
+                                 max_corr_dist=0.2 * d, max_iter=iters,
+                                 coarse_stride=icp_coarse_stride,
+                                 fine_iters=fine_iters)
+        return icp["R"], icp["t"]
+
+    def per_hyp(x):
+        return x.repeat_interleave(n_hyp, dim=0)
+
+    Rr, tr = refine(per_hyp(cad_xyz), per_hyp(cad_valid), per_hyp(pc_xyz),
+                    per_hyp(pc_valid), Rs.reshape(-1, 3, 3),
+                    ts.reshape(-1, 3), per_hyp(diam), bank_iters, 1)
+    Rr, tr = Rr.reshape(bsz, n_hyp, 3, 3), tr.reshape(bsz, n_hyp, 3)
+    scores = depth_consistency_score(
+        cad_xyz[:, None], cad_valid[:, None], Rr, tr, K[:, None],
+        observed_z[:, None], mask[:, None], diam[:, None], stride=stride)
+    # hysteresis: the base hypothesis stays unless another is clearly
+    # better (near-ties are rendering noise, not evidence)
+    handicap = torch.full((n_hyp,), 1.0 + margin, device=scores.device)
+    handicap[0] = 1.0
+    best = torch.argmin(scores * handicap, dim=-1)
+    ar = torch.arange(bsz, device=cad_xyz.device)
+    R_w, t_w = Rr[ar, best], tr[ar, best]
+    if icp_iters > bank_iters:
+        R_w, t_w = refine(cad_xyz, cad_valid, pc_xyz, pc_valid, R_w, t_w,
+                          diam, icp_iters - bank_iters, 5)
+    return {"R": R_w, "t": t_w, "score": scores[ar, best],
+            "hypothesis": best, "all_scores": scores}

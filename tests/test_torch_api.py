@@ -1,6 +1,7 @@
 """The port's cached-mode Predictor against the JAX Predictor on a real
 committed frame, and the package's hygiene: no JAX import, CUDA by
-default, no kernel build on a host without CUDA."""
+default, no kernel build on a host without CUDA, unported options
+refused. The online predict() is held to JAX in test_torch_online.py."""
 import os
 import subprocess
 import sys
@@ -84,12 +85,19 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pose6d_tpu')]\n"
         "assert not bad, bad\n"
+        "online = ['ops.sampling', 'ops.symmetry', 'spectral.lobpcg',\n"
+        "          'spectral.device_lbo', 'solvers.verify_pose',\n"
+        "          'solvers.multistart', 'solvers.candidates',\n"
+        "          'data.shapes', 'data.synth']\n"
+        "missing = [m for m in online if 'pose6d_tpu_torch.' + m\n"
+        "           not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('pose6d_tpu_')]))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25    # every submodule imported
+    assert int(res.stdout.split()[-1]) >= 49    # every submodule imported
 
 
 def test_chip_smoke_imports_no_jax():
@@ -106,9 +114,13 @@ def test_predictor_defaults_to_cuda():
         Predictor(model, {})
 
 
-def test_online_mode_not_ported():
+@pytest.mark.parametrize("option", [{"tta_rotations": 2},
+                                    {"zoomout_k": 64}, {"fps_groups": 8}])
+def test_unported_options_raise(option):
+    """Rotation TTA, ZoomOut and grouped FPS are not ported: the
+    Predictor refuses them, naming the ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(DPFMNet(), {}, mode="online", device="cpu")
+        Predictor(DPFMNet(), {}, device="cpu", **option)
 
 
 def test_cpu_run_never_builds_kernels(monkeypatch):
