@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels from csrc/ (into build/), holds each
 kernel against its plain PyTorch version at the main path's shapes
 (batch 16; the serve path's kernels also at batch 1 and on edge inputs,
-the masked cdist kernels also on ICP's coarse shape) and counts the
+the masked cdist kernels also on ICP's coarse shape and at ZoomOut's
+64 features) and counts the
 instructions of the issue-bound kernels' inner loops. Then the online
 path: two rendered 640 x 480 depth frames of random_shape meshes through
 Predictor(device="cuda").predict (depth -> cloud -> device LBO -> pose ->
@@ -13,8 +14,12 @@ flip disambiguation), timed per stage, held stage by stage against the
 port's CPU run, and a batch of 16 through candidate_select_pose ->
 disambiguate_pose_depth. Then cached-mode pose requests on the two
 committed LM frames through predict_with_operators, checked against the
-port's own CPU run, a timed batch of 16 frames, and training. Each phase
-prints one JSON line; a failure anywhere raises. The line before the
+port's own CPU run, a timed batch of 16 frames, and training. Then the
+evaluation protocol on four instances (the LM frames and the rendered
+ones): evaluate() at the reference's settings and with TTA + ZoomOut,
+run_pose_stage (RANSAC with disambiguation, GNC) on its result files and
+the pose CLI, each against the port's CPU run. Each phase prints one
+JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is unavailable or the package is missing.
@@ -54,6 +59,10 @@ PATH_KERNELS = {
     "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
     "train": ("flash_cross_attention", "flash_cross_attention_backward",
               "masked_argmin_cdist"),
+    "eval": ("flash_cross_attention", "consistency_sum_rank_major",
+             "masked_topk_cdist", "masked_argmin_cdist",
+             "masked_consistency_sum"),
+    "pose_stage": ("masked_argmin_cdist",),
 }
 
 
@@ -68,8 +77,14 @@ def launched(names, path: str) -> dict:
     return counts
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase result; `t_s` is the script's elapsed time."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def gpu_name_and_limit() -> str:
@@ -401,7 +416,11 @@ def cdist_fns(k: int):
 
 # (normal spread, grid step, clip) of the exact-grid inputs, by C: the
 # spectral embedding's scale for C = 30, centimetres for ICP's C = 3
-CDIST_GRIDS = {30: (0.05, 2.0 ** -10, 0.125), 3: (5.0, 2.0 ** -6, 10.0)}
+CDIST_GRIDS = {30: (0.05, 2.0 ** -10, 0.125), 64: (0.05, 2.0 ** -10, 0.125),
+               3: (5.0, 2.0 ** -6, 10.0)}
+# ZoomOut's nearest-neighbour shape: (frames, queries, columns, valid
+# columns, features); the ZoomOut candidate's top-5 runs at the same C
+CDIST_ZOOMOUT = (8, 2048, 5120, 5000, 64)
 
 
 def grid_points(shape, c, dev, g):
@@ -498,6 +517,7 @@ def check_cdist(dev, g) -> dict:
                       f"{m_valid} valid")
         edges = cdist_edges(name, kern, plain, c, dev, g)
         real = real_valued_cdist(name, kern, plain, c, dev, g)
+        wide = cdist_zoomout(name, kern, plain, library, k, dev, g)
         main = shapes["b16"]
         rows[name] = dict(
             route="cuda", source="pose6d_tpu_torch/csrc/masked_cdist.cu",
@@ -505,20 +525,46 @@ def check_cdist(dev, g) -> dict:
             tol="exact-grid cases: equal d2 and indices; real-valued: "
                 + real["tol"],
             index_mismatches=sum(r["index_mismatches"] for r in
-                                 (*shapes.values(), edges, real)),
+                                 (*shapes.values(), edges, real, wide)),
             **{key: main[key] for key in ("ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
             b1={key: shapes["b1"][key] for key in (
                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_call_ms")},
-            by_shape=shapes, edges=edges, real_valued=real,
+            c64=wide, by_shape=shapes, edges=edges, real_valued=real,
             shapes=f"a (16,2048,{c}) x b (16,5120,{c}), k={k}; by_shape: "
                    "B = 1, B = 16, and B = 16 x 1280 b rows",
             timing="ms and library_ms: device time per call (calls replayed "
                    "as a CUDA graph); call_ms: back-to-back calls from the "
                    "host, launch cost included")
     return rows
+
+
+def cdist_zoomout(name, kern, plain, library, k, dev, g) -> dict:
+    """The kernel at C = 64 (the layout for 32 < C <= 64) at ZoomOut's
+    shape, B = 8 x 2048 queries x 5120 columns, on exact-grid inputs
+    with exact ties (adjacent equal columns among the first 64) and
+    masked columns (the last 120, and 5 % at random): held to the plain
+    version bit for bit, timed against its bound."""
+    bsz, n, m, m_valid, c = CDIST_ZOOMOUT
+    a = grid_points((bsz, n, c), c, dev, g)
+    b = grid_points((bsz, m, c), c, dev, g)
+    b[:, 1:64:2] = b[:, 0:64:2]
+    bv = (torch.arange(m, device=dev).expand(bsz, m) < m_valid) & (
+        torch.rand((bsz, m), device=dev, generator=g) > 0.05)
+    res = compare_cdist(f"{name} c64", kern, plain, a, b, bv)
+    del res["out"]
+    n_valid = int(bv.sum().item())
+    b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m + 8 * bsz * n * k,
+                     2 * c * n * n_valid)
+    return dict(res, ms=graph_ms(lambda: kern(a, b, bv), 10),
+                call_ms=cuda_ms(lambda: kern(a, b, bv), 10),
+                plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
+                library_ms=graph_ms(lambda: library(a, b, bv), 3),
+                bound_ms=b_ms, bound_by=by,
+                shape=f"a ({bsz},{n},{c}) x b ({bsz},{m},{c}), {n_valid} "
+                      "valid in all, ties")
 
 
 def cdist_edges(name, kern, plain, c, dev, g) -> dict:
@@ -1894,6 +1940,320 @@ def profile_steps(ts, batch, gen, n: int = 3) -> dict:
             "device_launches_per_step": sum(e.count for e in rows) / n}
 
 
+# evaluate()'s result npz, as the JAX package writes it
+# (pose6d_tpu/train/eval_loop.py:296-325)
+NPZ_KEYS = ("C_pred", "K", "R_m2c", "align_pc", "cad_xyz", "diam_cad",
+            "evecs_cad", "evecs_pc", "im_hw", "ir", "obj_id", "overlap12",
+            "overlap21", "p_pred", "pcd_depth", "t_m2c")
+EVAL_DIR = ROOT / "build" / "chip_smoke_eval"
+
+
+def eval_dataset(frames, online, stages) -> list:
+    """Four (cad_ops, pc_ops, obj) instances: the two LM frames (no
+    intrinsics) and the two rendered online frames under object ids 1
+    and 2, with their card-computed operators, the LM intrinsics and
+    the 480 x 640 image size; GT pairs from data.dataset.gt_object."""
+    from pose6d_tpu_torch.data.dataset import gt_object
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    items = []
+    for f in frames:
+        obj = gt_object(f["cad_ops"]["xyz"], f["pc_ops"]["xyz"], f["R_gt"],
+                        f["t_gt"], f["diam"], f["obj"])
+        items.append((f["cad_ops"], f["pc_ops"], obj))
+    for obj_id, f in enumerate(online, start=1):
+        ops = stages[f["obj"]]["ops"]
+        v = ops["valid"][0].cpu().numpy()
+        pc_ops = {k: ops[k][0].cpu().numpy()[v] for k in ("xyz", "mass",
+                                                          "evecs")}
+        pc_ops["evals"] = ops["evals"][0].cpu().numpy()
+        obj = gt_object(f["cad_ops"]["xyz"], pc_ops["xyz"], f["R_gt"],
+                        f["t_gt"], f["diam"], obj_id, K=default_intrinsics(),
+                        im_hw=(480, 640))
+        items.append((f["cad_ops"], pc_ops, obj))
+    emit("eval_dataset", objects=[it[2]["obj_id"] for it in items],
+         cad_points=[len(it[0]["xyz"]) for it in items],
+         pc_points=[len(it[1]["xyz"]) for it in items],
+         gt_pairs=[len(it[2]["P"]) for it in items],
+         intrinsics=["K" in it[2] for it in items])
+    return items
+
+
+def eval_config(candidates: bool):
+    from pose6d_tpu_torch.config import Config
+    cfg = Config()
+    if candidates:
+        cfg.eval.batch_size = 2
+        cfg.eval.tta_rotations = 4
+        cfg.eval.zoomout_k = 64
+        cfg.eval.zoomout_gate_tau = 0.15
+        cfg.eval.select_by = "depth"
+    else:
+        cfg.eval.batch_size = 4
+    return cfg
+
+
+# the rounding probe: coordinates moved by this relative amount, each by
+# a random sign, and the card's run repeated on them. Card and CPU read
+# nearest neighbours from |a|^2 - 2 a.b + |b|^2 in f32, which at |x| ~
+# 100 cm rounds a squared distance by up to ~1.5e-3 cm^2: for a 0.1 cm
+# neighbour, as much as moving the points by ~7.5e-5 relative. 1e-4
+# (0.1 mm at 1 m, a tenth of a depth sensor's step) is that size.
+PROBE_REL = 1e-4
+
+
+def nudge(x, seed: int = 0):
+    """x (N, 3) moved by PROBE_REL relative, a random sign per entry."""
+    x = np.asarray(x, np.float32)
+    sign = np.random.default_rng(seed).choice([-1.0, 1.0], size=x.shape)
+    return (x * (1.0 + PROBE_REL * sign)).astype(np.float32)
+
+
+def eval_results(d, i: int) -> dict:
+    return dict(np.load(Path(d) / f"result_{i:06d}.npz"))
+
+
+def eval_phase(items, model, gpu_line: str):
+    """evaluate() on the card twice (the reference's settings, batch 4;
+    TTA 4 + ZoomOut 64 gated at 0.15, depth selection, batch 2: the LM
+    batch lacks intrinsics and falls back to survivor counts, the
+    rendered batch takes the depth score), each against the port's CPU
+    evaluate of the same dataset: per-instance IR within 0.01, the same
+    winners, the npz keys, dtypes and shapes of the JAX layout.
+
+    On an unseen shape's weak maps, the candidates compete (the weak-base
+    trigger) and their filters and ZoomOut refits are ill-conditioned:
+    rounding alone can move the winner. So where card and CPU disagree,
+    the instance's batch runs once more on the card with its observed
+    points moved by PROBE_REL relative (the rounding probe); the disagreement
+    is accepted, and reported, only if the card's own winner or IR then
+    moves too. Returns the candidate run's npz directory and the launch
+    counts of the card runs (probes included)."""
+    import shutil
+
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.train.eval_loop import evaluate, select_uniforms
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    cpu_model = cpu_copy(model)
+    reset_launches()
+    before = dict(LAUNCHES)
+    for label, cand in (("reference", False), ("tta4_zoomout64", True)):
+        cfg = eval_config(cand)
+        bs = cfg.eval.batch_size
+        d = EVAL_DIR / label
+        sel = {"cuda": [], "cpu": []}
+        t0 = time.perf_counter()
+        evaluate(cfg, model, items, save_dir=d / "cuda", device="cuda",
+                 selection=sel["cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = {k: (LAUNCHES[k] - before[k]) / len(items) for k in LAUNCHES}
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        evaluate(cfg, cpu_model, items, save_dir=d / "cpu", device="cpu",
+                 selection=sel["cpu"])
+        cpu_s = time.perf_counter() - t0
+        wins = {k: [x["winner"] for x in v] for k, v in sel.items()}
+        irs, unstable, probes = [], [], {}
+        for i in range(len(items)):
+            a, b = eval_results(d / "cuda", i), eval_results(d / "cpu", i)
+            if tuple(sorted(a)) != NPZ_KEYS or sorted(b) != sorted(a):
+                raise AssertionError(f"eval {label} {i}: keys {sorted(a)}")
+            bad = [k for k in a if a[k].dtype != b[k].dtype
+                   or a[k].shape[1:] != b[k].shape[1:]
+                   or (k != "p_pred" and a[k].shape != b[k].shape)]
+            if bad:
+                raise AssertionError(f"eval {label} {i}: layout {bad}")
+            irs.append((float(a["ir"]), float(b["ir"])))
+            if (abs(irs[-1][0] - irs[-1][1]) <= 0.01
+                    and wins["cuda"][i] == wins["cpu"][i]):
+                continue
+            lo = i - i % bs
+            if lo not in probes:        # the batch again, nudged
+                w2 = []
+                batch = [(c, {**p, "xyz": nudge(p["xyz"])}, o)
+                         for c, p, o in items[lo:lo + bs]]
+                evaluate(cfg, model, batch, save_dir=d / f"probe_{lo}",
+                         device="cuda", selection=w2,
+                         select_draws=lambda idx, n, h: select_uniforms(
+                             idx + lo, n, h))
+                probes[lo] = [x["winner"] for x in w2]
+            ir2 = float(eval_results(d / f"probe_{lo}", i - lo)["ir"])
+            w2 = probes[lo][i - lo]
+            moved = w2 != wins["cuda"][i] or abs(ir2 - irs[-1][0]) > 0.01
+            unstable.append({"instance": i, "winners": [
+                wins["cuda"][i], wins["cpu"][i], w2],
+                "ir": [*irs[-1], ir2], "card_moved_by_probe": moved})
+        emit("eval", run=label, gpu=gpu_line, batch=bs,
+             ms_per_instance=1e3 * card_s / len(items),
+             cpu_s_per_instance=cpu_s / len(items),
+             launches_per_instance=counts, ir_cuda_cpu=irs,
+             winners=wins, scores={k: [x["scores"] for x in v]
+                                   for k, v in sel.items()},
+             rounding_unstable=unstable,
+             tol="IR 0.01 and the same winner, except where the card "
+                 f"moves too when the points move by {PROBE_REL} relative",
+             timing="host clock around evaluate() (host loader, npz "
+                    "writing included), device synchronised at the end")
+        stable = [u["instance"] for u in unstable
+                  if not u["card_moved_by_probe"]]
+        if stable:
+            raise AssertionError(f"eval {label}: card and CPU disagree on "
+                                 f"{stable}, the card is stable")
+    return EVAL_DIR / "tta4_zoomout64" / "cuda", launched(
+        PATH_KERNELS["eval"], "eval")
+
+
+def pose_agreement(a, b, j: int, diam: float, cad) -> dict:
+    """How far two runs' outputs for chunk row j lie apart. ADD and ADD-S
+    are 1-Lipschitz in the points' displacement, so two runs whose poses
+    differ (within the pose tolerance) may differ in them by the mean
+    displacement between their posed CADs: add_rel and adds_rel are the
+    part of each difference beyond it, relative (the raw relative
+    differences are add_rel_raw and adds_rel_raw)."""
+    def disp(T1, T2):
+        return float(np.linalg.norm(cad @ (T1[:3, :3] - T2[:3, :3]).T
+                                    + (T1[:3, 3] - T2[:3, 3]), axis=1).mean())
+
+    shift = {"pre": disp(a["T_est"][j], b["T_est"][j]),
+             "post": disp(a["T_icp"][j], b["T_icp"][j])}
+    out = {"rot_deg": rot_deg(a["T_icp"][j][:3, :3], b["T_icp"][j][:3, :3]),
+           "t_frac_diam": float(np.linalg.norm(
+               a["T_icp"][j][:3, 3] - b["T_icp"][j][:3, 3]) / diam),
+           "flip": [int(a["flip_hyp"][j]), int(b["flip_hyp"][j])]}
+    for name, pairs in (
+            ("add", (("pre", a["pre"][0], b["pre"][0]),
+                     ("post", a["post"][0], b["post"][0]))),
+            ("adds", (("pre", a["adds_pre"], b["adds_pre"]),
+                      ("post", a["adds_post"], b["adds_post"])))):
+        raw = [abs(float(x[j]) - float(y[j])) / max(abs(float(y[j])), 1e-6)
+               for _, x, y in pairs]
+        excess = [max(0.0, abs(float(x[j]) - float(y[j])) - shift[k])
+                  / max(abs(float(y[j])), 1e-6) for k, x, y in pairs]
+        out[f"{name}_rel_raw"], out[f"{name}_rel"] = max(raw), max(excess)
+    out["posed_cad_shift_cm"] = shift
+    return out
+
+
+def pose_ok(g: dict) -> bool:
+    return (g["rot_deg"] <= 1.0 and g["t_frac_diam"] <= 0.01
+            and g["add_rel"] <= 1e-3 and g["adds_rel"] <= 1e-3
+            and g["flip"][0] == g["flip"][1])
+
+
+def pose_stage_runs(results_dir, gpu_line: str):
+    """run_pose_stage on the card over the candidate run's npz files at
+    full budgets (131072 hypotheses, 50 ICP iterations): RANSAC with
+    depth-render disambiguation and ICP against the GT-posed CAD; GNC
+    with ICP against the observed cloud. Each held against the port's
+    CPU run of the same files and seed: T_icp within 1 deg and 1 % of
+    the diameter, the same flip hypothesis, ADD and ADD-S within 1e-3
+    relative beyond what the two runs' pose difference moves them
+    (pose_agreement); where they disagree, the instance runs once more on the
+    card with its CAD and observed points moved by PROBE_REL relative, and
+    the disagreement is accepted, and reported, only if the card's result
+    then moves beyond the same tolerances too (a robust solver on an
+    unseen shape's weak correspondences). Returns the launch counts of
+    the card runs (probes included) and the RANSAC run's
+    avg_results.txt."""
+    import shutil
+    import warnings
+
+    from pose6d_tpu_torch.ops.kernels import reset_launches
+    from pose6d_tpu_torch.train.pose_stage import (draws_shape,
+                                                   instance_uniforms,
+                                                   run_pose_stage)
+    reset_launches()
+    avg = None
+    for solver, kw in (("ransac", {"disambiguate": True,
+                                   "icp_target": "gt_cad"}),
+                       ("gnc", {"icp_target": "pc"})):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            chunks, ms = [], {} if dev == "cuda" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode(1)
+                try:
+                    run_pose_stage(results_dir, EVAL_DIR / f"pose_{dev}",
+                                   solver=solver, device=dev, stage_ms=ms,
+                                   chunks=chunks, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            out[dev] = (chunks, 1e3 * (time.perf_counter() - t0), ms, syncs)
+        (gc, g_ms, split, syncs), (cc, c_ms, _, _) = out["cuda"], out["cpu"]
+        n = sum(len(c["i"]) for c in gc)
+        rows, unstable = [], []
+        for a, b in zip(gc, cc):
+            for j, i in enumerate(a["i"]):
+                r = eval_results(results_dir, i)
+                diam, cad = float(r["diam_cad"]), r["cad_xyz"]
+                g = pose_agreement(a, b, j, diam, cad)
+                rows.append({"instance": i, **g})
+                if pose_ok(g):
+                    continue
+                probe = EVAL_DIR / f"pose_probe_{solver}_{i}"
+                shutil.rmtree(probe, ignore_errors=True)
+                (probe / "in").mkdir(parents=True)
+                np.savez(probe / "in" / "result_000000.npz",
+                         **{**r, "cad_xyz": nudge(r["cad_xyz"]),
+                            "pcd_depth": nudge(r["pcd_depth"], 1)})
+                pc = []
+                run_pose_stage(probe / "in", probe / "out", solver=solver,
+                               device="cuda", chunks=pc, write_ply=False,
+                               uniforms=[instance_uniforms(0, i, draws_shape(
+                                   solver, 131072))], **kw)
+                g2 = pose_agreement(pc[0], {k: v if k == "i" else (
+                    tuple(x[j:j + 1] for x in v) if isinstance(v, tuple)
+                    else v[j:j + 1]) for k, v in a.items()}, 0, diam, cad)
+                unstable.append({"instance": i, "card_vs_cpu": g,
+                                 "probe_vs_card": g2,
+                                 "card_moved_by_probe": not pose_ok(g2)})
+        emit("pose_stage", solver=solver, gpu=gpu_line, instances=n,
+             chunks=len(gc), ms_per_instance=g_ms / n,
+             cpu_ms_per_instance=c_ms / n, stage_ms=split,
+             host_syncs_per_chunk=syncs / len(gc),
+             syncs_counted_by="torch.cuda.set_sync_debug_mode warnings",
+             card_vs_cpu=rows, rounding_unstable=unstable,
+             tol="1 deg, 1 % diam, same flip, ADD / ADD-S 1e-3 relative, "
+                 "except where the card moves too when the points move by "
+                 f"{PROBE_REL} relative")
+        stable = [u["instance"] for u in unstable
+                  if not u["card_moved_by_probe"]]
+        if stable:
+            raise AssertionError(f"pose_stage {solver}: card and CPU "
+                                 f"disagree on {stable}, the card is stable")
+        if solver == "ransac":
+            avg = (EVAL_DIR / "pose_cuda" / "results_poses_RANSAC"
+                   / "avg_results.txt").read_text()
+    return launched(PATH_KERNELS["pose_stage"], "pose_stage"), avg
+
+
+def cli_pose(results_dir, avg: str) -> None:
+    """python -m pose6d_tpu_torch.cli.pose ransac ... --device cuda
+    --no-ply --disambiguate as a subprocess on the same files: its
+    avg_results.txt equals the in-process run's."""
+    import os
+    out_dir = EVAL_DIR / "pose_cli"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pose6d_tpu_torch.cli.pose", "ransac",
+         str(results_dir), str(out_dir), "--device", "cuda", "--no-ply",
+         "--disambiguate"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    if res.returncode != 0:
+        raise AssertionError(f"cli.pose failed:\n{res.stderr[-4000:]}")
+    got = (out_dir / "results_poses_RANSAC" / "avg_results.txt").read_text()
+    emit("cli_pose", seconds=time.perf_counter() - t0, equal=got == avg,
+         ply_dir=(out_dir / "results_poses_RANSAC" / "ply").exists())
+    if got != avg:
+        raise AssertionError("cli.pose avg_results.txt differs from the "
+                             "in-process run's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1949,6 +2309,10 @@ def main() -> int:
     items = training_items(frames)
     train_check(items, dev)
     paths["train"] = train_run(items, dev, gpu_line)
+    eval_items = eval_dataset(frames, online, stages)
+    results_dir, paths["eval"] = eval_phase(eval_items, model, gpu_line)
+    paths["pose_stage"], avg = pose_stage_runs(results_dir, gpu_line)
+    cli_pose(results_dir, avg)
     emit("online_profile", obj=online[0]["obj"], gpu=gpu_line,
          **online_profile(pred, online[0], draws,
                           results[online[0]["obj"]]["ms"]))
@@ -1962,8 +2326,8 @@ def main() -> int:
         line.append({"name": name, "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
                      **{k: row[k] for k in keys},
-                     **{k: row[k] for k in ("b1", "call_ms", "bound_tc_ms")
-                        if k in row}})
+                     **{k: row[k] for k in ("b1", "c64", "call_ms",
+                                            "bound_tc_ms") if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

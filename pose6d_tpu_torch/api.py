@@ -26,8 +26,7 @@ from .ops import geometry, sampling
 from .ops.masking import V_CAD, V_PC, pad_to
 from .ops.symmetry import disambiguation_bank
 from .runtime import resolve_device
-from .solvers.candidates import (HYP_BLOCK, candidate_select_pose,
-                                 check_base_only)
+from .solvers.candidates import HYP_BLOCK, candidate_select_pose
 from .solvers.multistart import disambiguate_pose_depth
 from .spectral.device_lbo import device_pc_operators
 
@@ -70,7 +69,8 @@ class Predictor:
                  ransac_hypotheses: int = 131072, icp_iters: int = 30,
                  lobpcg_iters: int = 80, disambiguate: bool = True,
                  fps_groups: int = 1, tta_rotations: int = 0,
-                 zoomout_k: int = 0, device="cuda"):
+                 zoomout_k: int = 0, select_margin: float = 0.15,
+                 select_trigger: float = 0.25, device="cuda"):
         """model: a DPFMNet with its weights loaded; cad_bank: {obj_id:
         host operators}. Runs on `device` (default cuda; raises when
         CUDA is missing unless device="cpu" is asked for).
@@ -79,14 +79,19 @@ class Predictor:
         after ICP in predict(), with each object's detected-symmetry
         bank (ops/symmetry.disambiguation_bank, built here on the host
         in online mode).
-        fps_groups > 1 (grouped FPS), tta_rotations > 1 and zoomout_k
-        (candidate maps) are not ported and raise."""
+        tta_rotations > 1 / zoomout_k > 0 (default off): candidate maps
+        in predict() (solvers/candidates.py): forwards of rigidly rotated
+        clouds and / or a ZoomOut upsampling of the predicted map, each
+        solved to a RANSAC pose and scored by depth-render consistency,
+        the base map protected by the select_margin handicap and the
+        select_trigger weak-base gate. predict_with_operators stays
+        base-only (it has no depth image). fps_groups > 1 (grouped FPS)
+        is not ported and raises."""
         self.device = resolve_device(device)
         if mode not in ("online", "cached"):
             raise ValueError(f"mode must be 'online' or 'cached': {mode}")
         if fps_groups > 1:
             raise NotImplementedError(sampling.GROUPED_FPS)
-        check_base_only(tta_rotations, zoomout_k)
         self.mode = mode
         self.model = model.to(self.device).eval()
         self.v_pc = v_pc
@@ -106,6 +111,10 @@ class Predictor:
         self._rh = ransac_hypotheses
         self._icp_iters = icp_iters
         self._lobpcg_iters = lobpcg_iters
+        self._tta = tta_rotations
+        self._zk = zoomout_k
+        self._sel_margin = select_margin
+        self._sel_trigger = select_trigger
 
     # -- stages -------------------------------------------------------------
     def _cloud_from_depth(self, depth, K, cam_scale, mask):
@@ -134,10 +143,19 @@ class Predictor:
         cad = {k: v[None] for k, v in self.cad_bank[obj].items()}
         diam = torch.tensor([self._diam[obj]], dtype=torch.float32,
                             device=self.device)
-        out = pose_from_operators(self.model, cad, pc, diam,
-                                  n_hypotheses=self._rh,
-                                  icp_iters=self._icp_iters,
-                                  generator=generator, uniforms=uniforms)
+        if self._tta > 1 or self._zk:
+            out = candidate_select_pose(
+                self.model, cad, pc, diam, n_fmap=self.model.cfg.n_fmap,
+                tta_rotations=self._tta, zoomout_k=self._zk,
+                ransac_hypotheses=self._rh, icp_iters=self._icp_iters,
+                select_margin=self._sel_margin,
+                select_trigger=self._sel_trigger, K=K, obs_z=obs_z,
+                mask=mask, generator=generator, uniforms=uniforms)
+        else:
+            out = pose_from_operators(self.model, cad, pc, diam,
+                                      n_hypotheses=self._rh,
+                                      icp_iters=self._icp_iters,
+                                      generator=generator, uniforms=uniforms)
         if self.disambiguate:
             fix = disambiguate_pose_depth(
                 cad["xyz"], cad["valid"], pc["xyz"], pc["valid"], out["R"],

@@ -19,7 +19,8 @@
 //   a.b, then fmaf, add, max, compare and two selects: ~9 instructions,
 //   of which only 6 flops count toward the f32 roofline. Issue bounds it
 //   near 2x the flop bound.
-// - The spectral top-5 (K = 5, C = 30): 30 FMAs per pair plus the same
+// - The spectral top-5 (K = 5, C = 30, or 64 for a ZoomOut map) and
+//   ZoomOut's argmin (K = 1, C = 34 to 64): C FMAs per pair plus the same
 //   few, and a sorted insertion for the rare pair that enters a row's
 //   list; FMA issue bounds it.
 // - A one-frame call is 2048 queries: one thread per query walking all
@@ -34,11 +35,12 @@
 //   so a one-frame call still fills every SM (masked_topk_cdist_splits
 //   picks the count from B, N, M and the SM count).
 // - Breaks the dependency chain: each thread evaluates kQpt queries x
-//   kCpt columns per step (8 x 4 for C <= 3, 2 x 2 for C <= 32) with
-//   independent accumulators, the queries in registers and the columns
-//   read from shared memory as float4 (kCl distinct columns per warp
-//   instruction, in distinct banks), so each shared-memory wavefront
-//   feeds up to 4 * kQpt FMAs. C <= 3 skips the always-zero fourth feature.
+//   kCpt columns per step (8 x 4 for C <= 3, 2 x 2 for C <= 32, 1 x 4
+//   for C <= 64) with independent accumulators, the queries in
+//   registers and the columns read from shared memory as float4 (kCl
+//   distinct columns per warp instruction, in distinct banks), so each
+//   shared-memory wavefront feeds up to 4 * kQpt FMAs. C <= 3 skips the
+//   always-zero fourth feature.
 // - Folds validity into the staged tile: a masked or out-of-range column
 //   gets |b|^2 = +inf, so its d2 is +inf and never enters a list,
 //   without a branch per column.
@@ -54,7 +56,7 @@
 //   depend on the order in which lanes or blocks finish.
 // The wrapper passes a and b unpadded, with their batch and row strides
 // (a row may be a slice of a wider tensor); the kernel zero-fills the
-// features up to CP = 4 or 32 in registers and shared memory (zero
+// features up to CP = 4, 32 or 64 in registers and shared memory (zero
 // features change no distance), so a call makes no copies.
 //
 // C interface (ctypes): returns cudaGetLastError() after the launches.
@@ -84,6 +86,15 @@ template <> struct Tiling<4> {
 template <> struct Tiling<32> {
   static constexpr int kQpt = 2, kCpt = 2, kCl = 4, kTile = 128;
   static constexpr int kStride = 36, kUsed = 32, kMinBlocks = 2;
+};
+// 32 < C <= 64 (ZoomOut's embeddings): one query a thread, its 64
+// features in registers, 4 columns of each of a warp's 8 column lanes per
+// step; row stride 68 (17 4-bank groups: the 8 columns of one read land
+// in distinct groups). Two blocks per SM cap the registers at 128
+// without spills; measured 28 % faster than one block of 148 registers.
+template <> struct Tiling<64> {
+  static constexpr int kQpt = 1, kCpt = 4, kCl = 8, kTile = 128;
+  static constexpr int kStride = 68, kUsed = 64, kMinBlocks = 2;
 };
 
 template <int CP>
@@ -292,7 +303,9 @@ merge_splits_kernel(const float* __restrict__ part_d2,
   store<K>(out_d2 + (size_t)r * K, out_idx + (size_t)r * K, bd, bi, true);
 }
 
-int padded_width(int c) { return c <= Tiling<4>::kUsed ? 4 : 32; }
+int padded_width(int c) {
+  return c <= Tiling<4>::kUsed ? 4 : (c <= Tiling<32>::kUsed ? 32 : 64);
+}
 
 template <int CP>
 int plan_splits_cp(int batch, int n, int m, int sms) {
@@ -307,8 +320,11 @@ int plan_splits_cp(int batch, int n, int m, int sms) {
 }
 
 int plan_splits(int batch, int n, int m, int c, int sms) {
-  return padded_width(c) == 4 ? plan_splits_cp<4>(batch, n, m, sms)
-                              : plan_splits_cp<32>(batch, n, m, sms);
+  switch (padded_width(c)) {
+    case 4: return plan_splits_cp<4>(batch, n, m, sms);
+    case 32: return plan_splits_cp<32>(batch, n, m, sms);
+    default: return plan_splits_cp<64>(batch, n, m, sms);
+  }
 }
 
 template <int K, int CP>
@@ -337,12 +353,19 @@ void launch_k(const float* a, const float* b, const unsigned char* v,
               float* d2, int* idx, float* part_d2, int* part_idx, int batch,
               int n, int m, int c, int splits, const long long* st,
               cudaStream_t stream) {
-  if (padded_width(c) == 4)
-    launch<K, 4>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c, splits,
-                 st, stream);
-  else
-    launch<K, 32>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c,
-                  splits, st, stream);
+  switch (padded_width(c)) {
+    case 4:
+      launch<K, 4>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c,
+                   splits, st, stream);
+      break;
+    case 32:
+      launch<K, 32>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c,
+                    splits, st, stream);
+      break;
+    default:
+      launch<K, 64>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c,
+                    splits, st, stream);
+  }
 }
 
 }  // namespace
@@ -357,7 +380,7 @@ extern "C" int masked_topk_cdist_splits(int batch, int n, int m, int c,
 
 // a (B, N, C) and b (B, M, C) f32 with unit feature stride and the given
 // batch / row strides in elements; b_valid (B, M) bytes with batch
-// stride v_sb. C <= 32, k in {1, 5}.
+// stride v_sb. C <= 64, k in {1, 5}.
 extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
                                      const void* b_valid, void* out_d2,
                                      void* out_idx, void* part_d2,
@@ -366,7 +389,7 @@ extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
                                      long long a_sn, long long b_sb,
                                      long long b_sn, long long v_sb,
                                      void* stream) {
-  if (c < 1 || c > 32 || splits < 1 || (splits > 1 && !(part_d2 && part_idx)))
+  if (c < 1 || c > 64 || splits < 1 || (splits > 1 && !(part_d2 && part_idx)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);

@@ -1,6 +1,8 @@
-"""PLY reader (copy of read_ply from pose6d_tpu/data/ply.py).
+"""PLY reader and writers (copies of read_ply, write_ply_points and
+write_ply_mesh from pose6d_tpu/data/ply.py).
 
-ascii and binary little/big endian; vertices, normals, colors, faces.
+Reads ascii and binary little/big endian (vertices, normals, colors,
+faces); writes binary little-endian points and triangle meshes.
 """
 from __future__ import annotations
 
@@ -112,3 +114,44 @@ def _read_binary_element(f, count, props, endian):
                 cols[p[0]].append(np.frombuffer(f.read(t.itemsize), t)[0])
     return {k: (v if isinstance(v[0], list) else np.asarray(v))
             for k, v in cols.items() if v}
+
+
+def write_ply_points(path, points, colors=None):
+    """Write a point cloud as binary little-endian PLY."""
+    points = np.asarray(points, np.float32)
+    n = len(points)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if colors is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    data = np.empty(n, dtype=np.dtype(fields))
+    data["x"], data["y"], data["z"] = points.T
+    if colors is not None:
+        colors = np.asarray(colors, np.uint8)
+        data["red"], data["green"], data["blue"] = colors.T
+    with open(path, "wb") as f:
+        hdr = ["ply", "format binary_little_endian 1.0",
+               f"element vertex {n}",
+               "property float x", "property float y", "property float z"]
+        if colors is not None:
+            hdr += ["property uchar red", "property uchar green",
+                    "property uchar blue"]
+        hdr.append("end_header")
+        f.write(("\n".join(hdr) + "\n").encode())
+        f.write(data.tobytes())
+
+
+def write_ply_mesh(path, verts, faces):
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int32)
+    with open(path, "wb") as f:
+        hdr = ["ply", "format binary_little_endian 1.0",
+               f"element vertex {len(verts)}",
+               "property float x", "property float y", "property float z",
+               f"element face {len(faces)}",
+               "property list uchar int vertex_indices", "end_header"]
+        f.write(("\n".join(hdr) + "\n").encode())
+        f.write(verts.astype("<f4").tobytes())
+        rows = np.empty(len(faces), dtype=np.dtype([("n", "u1"), ("v", "<i4", 3)]))
+        rows["n"] = 3
+        rows["v"] = faces
+        f.write(rows.tobytes())

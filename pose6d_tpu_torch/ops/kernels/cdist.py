@@ -58,8 +58,8 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
         raise ValueError("a, b, b_valid must be on one device")
     bsz, n, c = a.shape
     m = b.shape[1]
-    if c > 32 or k not in (1, 5) or n == 0 or m == 0:
-        raise ValueError(f"kernel takes C <= 32, k in (1, 5): C={c} k={k}")
+    if c > 64 or k not in (1, 5) or n == 0 or m == 0:
+        raise ValueError(f"kernel takes C <= 64, k in (1, 5): C={c} k={k}")
     a, b, valid = (x if x.stride(-1) == 1 else x.contiguous()
                    for x in (a, b, b_valid))
     lib = _build.library("masked_cdist.cu")

@@ -1,23 +1,43 @@
-"""Symmetry-flip disambiguation by depth consistency (port of
-flip_hypotheses and disambiguate_pose_depth from
-pose6d_tpu/solvers/multistart.py).
+"""Symmetry-flip disambiguation (port of pose6d_tpu/solvers/multistart.py).
 
 A functional map cannot tell a shape from its near-symmetric images, so
-the pipeline can land on a flipped pose. This stage refines a bank of
+the pipeline can land on a flipped pose. These stages refine a bank of
 flip hypotheses (the base pose composed with model-frame rotations about
-the CAD centroid) by a short ICP each, scores every refined hypothesis
-against the observed depth image (solvers/verify_pose.py), keeps the
-base unless an alternative is clearly better, and refines the winner.
-The H hypotheses of B frames run as one ICP batch of B * H.
+the CAD centroid) by a short ICP each and keep the best-explaining one:
+disambiguate_pose_depth scores every refined hypothesis against the
+observed depth image (solvers/verify_pose.py), keeps the base unless an
+alternative is clearly better and refines the winner; the geometric
+disambiguate_pose scores by the one-way observed-cloud -> model
+distance. The H hypotheses of B frames run as one ICP batch of B * H.
+so3_bank is the coarse rotation bank of rotation TTA.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..ops.masking import masked_mean
+from ..ops.nn import nearest_valid
 from .icp import icp_cloud_to_model
 from .verify_pose import depth_consistency_score
+
+
+def so3_bank(n: int) -> np.ndarray:
+    """First n (at most 10) of a fixed coarse SO(3) bank, (n, 3, 3) f32
+    numpy: identity, 180 deg about x, y, z, then +-90 deg about z, y, x."""
+    def aa(ax, ang):
+        x, y, z = ax
+        K = np.array([[0., -z, y], [z, 0., -x], [-y, x, 0.]])
+        return np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * (K @ K)
+    mats = [np.eye(3)]
+    for ax in ((1, 0, 0), (0, 1, 0), (0, 0, 1)):
+        mats.append(aa(ax, np.pi))
+    for ax in ((0, 0, 1), (0, 1, 0), (1, 0, 0)):
+        mats.append(aa(ax, np.pi / 2))
+        mats.append(aa(ax, -np.pi / 2))
+    return np.stack(mats[:n]).astype(np.float32)
 
 
 def _axis_angle(axis, angle: float):
@@ -64,6 +84,41 @@ def flip_hypotheses(cad_xyz, cad_valid, R0, t0, rots=None):
     return Rs, ts
 
 
+def _per_hyp(x, n_hyp: int):
+    return x.repeat_interleave(n_hyp, dim=0)
+
+
+def disambiguate_pose(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0, diam,
+                      icp_iters: int = 15):
+    """The generic flip bank (H = 6), each hypothesis refined by
+    icp_iters ICP iterations at full resolution; the best explains the
+    observed cloud with the smallest mean one-way distance to the posed
+    model (ties to the lower hypothesis). Shapes as
+    disambiguate_pose_depth. Returns dict R (B, 3, 3), t (B, 3), score
+    (B,), hypothesis (B,), all_scores (B, H)."""
+    bsz = cad_xyz.shape[0]
+    Rs, ts = flip_hypotheses(cad_xyz, cad_valid, R0, t0)
+    n_hyp = Rs.shape[1]
+    diam = torch.as_tensor(diam, dtype=torch.float32,
+                           device=cad_xyz.device).expand(bsz)
+    cx, cv = _per_hyp(cad_xyz, n_hyp), _per_hyp(cad_valid, n_hyp)
+    px, pv = _per_hyp(pc_xyz, n_hyp), _per_hyp(pc_valid, n_hyp)
+    icp = icp_cloud_to_model(cx, cv, px, pv, Rs.reshape(-1, 3, 3),
+                             ts.reshape(-1, 3),
+                             max_corr_dist=0.2 * _per_hyp(diam, n_hyp),
+                             max_iter=icp_iters)
+    model_cam = cx @ icp["R"].transpose(-1, -2) + icp["t"][:, None]
+    d2, _ = nearest_valid(px.float().contiguous(), model_cam, cv)
+    scores = masked_mean(torch.sqrt(torch.clamp(d2, min=0.0)), pv,
+                         dim=-1).reshape(bsz, n_hyp)
+    best = torch.argmin(scores, dim=-1)
+    ar = torch.arange(bsz, device=cad_xyz.device)
+    Rr = icp["R"].reshape(bsz, n_hyp, 3, 3)
+    tr = icp["t"].reshape(bsz, n_hyp, 3)
+    return {"R": Rr[ar, best], "t": tr[ar, best], "score": scores[ar, best],
+            "hypothesis": best, "all_scores": scores}
+
+
 def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
                             diam, K, observed_z, mask, icp_iters: int = 15,
                             stride: int = 4, margin: float = 0.25,
@@ -96,7 +151,7 @@ def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
         return icp["R"], icp["t"]
 
     def per_hyp(x):
-        return x.repeat_interleave(n_hyp, dim=0)
+        return _per_hyp(x, n_hyp)
 
     Rr, tr = refine(per_hyp(cad_xyz), per_hyp(cad_valid), per_hyp(pc_xyz),
                     per_hyp(pc_valid), Rs.reshape(-1, 3, 3),

@@ -29,6 +29,12 @@ FRAME = (ROOT / "results_synth_unseen" / "step5737" / "results_poses_RANSAC"
          / "ply" / "obj_11_result_0")
 
 
+def _frob_deg(Ra, Rb):
+    """The angle between two rotations from |Ra - Rb|_F, in float64."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(1.0, d / np.sqrt(8.0)))))
+
+
 def _rot_deg(Ra, Rb):
     c = (np.trace(Ra.T @ Rb) - 1) / 2
     return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
@@ -114,13 +120,75 @@ def test_predictor_defaults_to_cuda():
         Predictor(model, {})
 
 
-@pytest.mark.parametrize("option", [{"tta_rotations": 2},
-                                    {"zoomout_k": 64}, {"fps_groups": 8}])
+@pytest.mark.parametrize("option", [{"fps_groups": 8}])
 def test_unported_options_raise(option):
-    """Rotation TTA, ZoomOut and grouped FPS are not ported: the
-    Predictor refuses them, naming the ROADMAP item."""
+    """Grouped FPS is not ported: the Predictor refuses it, naming the
+    ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(DPFMNet(), {}, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [{"tta_rotations": 2},
+                                    {"zoomout_k": 64}])
+def test_predictor_candidates_match_jax_predictor(monkeypatch, option):
+    """Predictor.predict with rotation TTA or ZoomOut candidates against
+    JAX's, on the CPU: tests/test_torch_online.py's rendered random_shape
+    frame (seed 12) and test sizes, JAX's attention in f32 and its draws
+    on both sides. Pose within 1 deg and 1 % of the diameter, the same
+    winning candidate and flip hypothesis."""
+    import types
+    import warnings
+
+    import jax.numpy as jnp
+    from scipy.spatial.transform import Rotation
+
+    import pose6d_tpu.api as jax_api
+    import pose6d_tpu.models.attention as jax_attention
+    import pose6d_tpu_torch.api as torch_api
+    from pose6d_tpu_torch.data.shapes import random_shape
+    from pose6d_tpu_torch.data.synth import default_intrinsics, rasterize_depth
+    from pose6d_tpu_torch.spectral import device_lbo
+    seed = 12
+    verts, faces = random_shape(seed, nu=16, nv=32)
+    verts = verts * (140.0 / np.linalg.norm(verts.max(0) - verts.min(0)))
+    rng = np.random.default_rng(seed)
+    R_gt = Rotation.from_rotvec(rng.normal(size=3) * 0.9).as_matrix()
+    t_gt = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                     rng.uniform(900, 1200)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        depth = rasterize_depth(verts, faces, R_gt, t_gt).astype(np.uint16)
+    mask = depth > 0
+    K = default_intrinsics()
+    cad_ops = point_cloud_operators(verts * 0.1)
+    diam = float(np.linalg.norm(cad_ops["xyz"].max(0)
+                                - cad_ops["xyz"].min(0)))
+    sizes = dict(v_cad=640, v_pc=512, max_pc=500, ransac_hypotheses=512,
+                 icp_iters=5, lobpcg_iters=30, **option)
+    monkeypatch.setattr(jax_api, "MAX_RAW", 4096)
+    monkeypatch.setattr(torch_api, "MAX_RAW", 4096)
+    proxy = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                     if not k.startswith("__")})
+    proxy.bfloat16 = jnp.float32
+    monkeypatch.setattr(jax_attention, "jnp", proxy)
+    params = {"params": serialization.msgpack_restore(
+        CKPT.read_bytes())["params"]}
+    ref = JaxPredictor(params, {seed: cad_ops}, mode="online", **sizes
+                       ).predict(depth, K, 1.0, [mask], [seed], seed=0)[0]
+
+    key = jax.random.split(jax.random.PRNGKey(0))[1]
+    key, sub = jax.random.split(key)
+    draws = np.array(jax.random.uniform(sub, (512, 3)))[None]
+    x0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (512, 64)))
+    monkeypatch.setattr(device_lbo, "default_x0",
+                        lambda v, k, device: torch.as_tensor(x0).to(device))
+    pred = Predictor(load_flax_checkpoint(CKPT, DPFMNet()), {seed: cad_ops},
+                     device="cpu", **sizes)
+    out = pred.predict(depth, K, 1.0, [mask], [seed], uniforms=[draws])[0]
+    assert _frob_deg(out["R"], ref["R"]) < 1.0
+    assert np.linalg.norm(out["t"] - ref["t"]) < 0.01 * diam
+    assert int(out["candidate"]) == int(ref["candidate"])
+    assert int(out["flip_hypothesis"]) == int(ref["flip_hypothesis"])
 
 
 def test_cpu_run_never_builds_kernels(monkeypatch):
