@@ -39,25 +39,44 @@ def rotate_about_centroid(xyz, valid, R3):
 
 
 def candidate_maps(model, cad, pc, diam, n_fmap: int,
-                   tta_rotations: int = 0, zoomout_k: int = 0):
-    """(base model outputs, [(C (B, k, k), k), ...]), base candidate
-    first, then its ZoomOut upsampling (zoomout_k > 0, gated at 0.15 of
-    the diameter), then one map per non-identity rotation of
-    so3_bank(tta_rotations) (tta_rotations > 1)."""
-    out = model(cad, pc)
-    cands = [(out["C"], n_fmap)]
-    if zoomout_k:
-        C_r = zoomout_refine(out["C"], cad["evecs"][..., :zoomout_k],
-                             pc["evecs"][..., :zoomout_k], cad["valid"],
-                             pc["valid"], cad_xyz=cad["xyz"],
-                             pc_xyz=pc["xyz"], diam=diam,
-                             gate_tau=ZOOMOUT_GATE_TAU)
-        cands.append((C_r, zoomout_k))
+                   tta_rotations: int = 0, zoomout_k: int = 0,
+                   zoomout_step: int = 4,
+                   gate_tau: float = ZOOMOUT_GATE_TAU,
+                   refine_rotations: bool = False) -> list:
+    """[(model outputs, C (B, k, k), k, pc_xyz), ...]: the base candidate
+    first, then its ZoomOut upsampling (zoomout_k > 0, gated at gate_tau
+    of the diameter), then the map of each non-identity rotation of
+    so3_bank(tta_rotations) (tta_rotations > 1), followed by its own
+    upsampling when refine_rotations (the evaluation's candidates).
+    pc_xyz is the cloud the map was predicted from (rotated or not)."""
+    def maps(pc_r, refine: bool) -> list:
+        out = model(cad, pc_r)
+        cands = [(out, out["C"], n_fmap, pc_r["xyz"])]
+        if zoomout_k and refine:
+            C_r = zoomout_refine(out["C"], cad["evecs"][..., :zoomout_k],
+                                 pc_r["evecs"][..., :zoomout_k],
+                                 cad["valid"], pc_r["valid"],
+                                 step=zoomout_step, cad_xyz=cad["xyz"],
+                                 pc_xyz=pc_r["xyz"], diam=diam,
+                                 gate_tau=gate_tau)
+            cands.append((out, C_r, zoomout_k, pc_r["xyz"]))
+        return cands
+
+    cands = maps(pc, True)
     if tta_rotations > 1:
-        for R3 in so3_bank(tta_rotations)[1:]:
+        for R3 in so3_bank(tta_rotations)[1:]:     # [0] is the identity
             xyz_r = rotate_about_centroid(pc["xyz"], pc["valid"], R3)
-            cands.append((model(cad, {**pc, "xyz": xyz_r})["C"], n_fmap))
-    return out, cands
+            cands += maps({**pc, "xyz": xyz_r}, refine_rotations)
+    return cands
+
+
+def select_candidate(scores, base_surv, n_valid, select_trigger: float):
+    """Winner per sample over handicapped scores (n_candidates, B), lower
+    wins, ties to the lower index (the base map first). Samples whose
+    base map is strong (base_surv >= select_trigger * n_valid spatial-
+    filter survivors) keep the base map (0)."""
+    engaged = base_surv < select_trigger * n_valid
+    return torch.where(engaged, torch.argmin(scores, 0), 0)
 
 
 def _gather_rows(xyz, idx):
@@ -83,9 +102,10 @@ def candidate_select_pose(model, cad, pc, diam, *, n_fmap: int,
     overlap12, overlap21, C (the base map's), icp_rmse and candidate
     (B,), the winner (0: the base map)."""
     with torch.inference_mode():
-        out, cands = candidate_maps(model, cad, pc, diam, n_fmap=n_fmap,
-                                    tta_rotations=tta_rotations,
-                                    zoomout_k=zoomout_k)
+        cands = candidate_maps(model, cad, pc, diam, n_fmap=n_fmap,
+                               tta_rotations=tta_rotations,
+                               zoomout_k=zoomout_k)
+        out = cands[0][0]
         if len(cands) > 1 and K is None:
             raise ValueError("candidate selection needs K, obs_z and mask")
         bsz = cad["xyz"].shape[0]
@@ -94,7 +114,7 @@ def candidate_select_pose(model, cad, pc, diam, *, n_fmap: int,
                                device=ar.device).expand(bsz)
         state = None if generator is None else generator.get_state()
         poses, scores = [], []
-        for ci, (C, k) in enumerate(cands):
+        for ci, (_, C, k, _) in enumerate(cands):
             pairs, pvalid = spatial_filtering_fmap2pointmap(
                 C, cad["evecs"][..., :k], pc["evecs"][..., :k], cad["xyz"],
                 pc["xyz"], cad["valid"], pc["valid"], diam)
@@ -115,9 +135,8 @@ def candidate_select_pose(model, cad, pc, diam, *, n_fmap: int,
                                             mask, diam)
                 scores.append(s * (1.0 + select_margin if ci else 1.0))
         if len(cands) > 1:
-            engaged = base_surv < select_trigger * pc["valid"].sum(-1)
-            winner = torch.where(engaged,
-                                 torch.argmin(torch.stack(scores, 1), 1), 0)
+            winner = select_candidate(torch.stack(scores), base_surv,
+                                      pc["valid"].sum(-1), select_trigger)
         else:
             winner = torch.zeros(bsz, dtype=torch.int64, device=ar.device)
 

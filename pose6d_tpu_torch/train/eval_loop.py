@@ -23,13 +23,11 @@ import torch
 from ..data.pipeline import HostLoader, to_device
 from ..models import DPFMNet, load_flax_checkpoint
 from ..runtime import resolve_device
-from ..solvers.candidates import rotate_about_centroid
+from ..solvers.candidates import candidate_maps, select_candidate
 from ..solvers.fmap2pointmap import (naive_fmap2pointmap,
                                      spatial_filtering_fmap2pointmap)
-from ..solvers.multistart import so3_bank
 from ..solvers.ransac import ransac_pose
 from ..solvers.verify_pose import depth_consistency_score
-from ..solvers.zoomout import zoomout_refine
 from .metrics import inlier_ratio
 
 _NO_DATASET = ("the BOP evaluation dataset is not ported yet (ROADMAP.md, "
@@ -79,44 +77,21 @@ def _depth_score(hyps: int):
     return score
 
 
-def _zoomout(zk: int, step: int, gate_tau: float):
-    """Batched ZoomOut refinement into the first zk cached eigenvectors."""
-    def refine(C, ex, ey, vx, vy, cx, px, d):
-        return zoomout_refine(C, ex[..., :zk], ey[..., :zk], vx, vy,
-                              step=step, cad_xyz=cx, pc_xyz=px, diam=d,
-                              gate_tau=gate_tau)
-    return refine
-
-
-def _batch_candidates(fwd, solver, refine, batch, rot_bank, n_fmap: int,
-                      k_cols: int):
+def _batch_candidates(model, solver, batch, cfg) -> list:
     """Candidate maps of one batch, each (out, pairs, pvalid): the raw
-    prediction, its ZoomOut upsampling when on, and the same pair for
-    every non-identity rotation of the TTA bank. The base candidate is
-    first (it wins selection ties)."""
-    cad, diam = batch["cad"], batch["diam_cad"]
-
-    def candidates(pc):
-        out = fwd(cad, pc)
-        cands = [(out, *solver(out["C"], cad["evecs"][..., :n_fmap],
-                               pc["evecs"][..., :n_fmap], cad["xyz"],
-                               pc["xyz"], cad["valid"], pc["valid"], diam))]
-        if refine is not None:
-            C_r = refine(out["C"], cad["evecs"], pc["evecs"], cad["valid"],
-                         pc["valid"], cad["xyz"], pc["xyz"], diam)
-            cands.append((out, *solver(
-                C_r, cad["evecs"][..., :k_cols], pc["evecs"][..., :k_cols],
-                cad["xyz"], pc["xyz"], cad["valid"], pc["valid"], diam)))
-        return cands
-
-    cand_list = candidates(batch["pc"])
-    if rot_bank is not None:
-        for R3 in rot_bank[1:]:     # bank[0] is the identity
-            pc_r = dict(batch["pc"])
-            pc_r["xyz"] = rotate_about_centroid(batch["pc"]["xyz"],
-                                                batch["pc"]["valid"], R3)
-            cand_list.extend(candidates(pc_r))
-    return cand_list
+    prediction and its ZoomOut upsampling when on, then the same pair
+    for every non-identity rotation of the TTA bank
+    (solvers/candidates.candidate_maps). The base candidate is first (it
+    wins selection ties)."""
+    cad, pc, diam = batch["cad"], batch["pc"], batch["diam_cad"]
+    cands = candidate_maps(
+        model, cad, pc, diam, cfg.model.n_fmap,
+        tta_rotations=cfg.eval.tta_rotations, zoomout_k=cfg.eval.zoomout_k,
+        zoomout_step=cfg.eval.zoomout_step,
+        gate_tau=cfg.eval.zoomout_gate_tau, refine_rotations=True)
+    return [(out, *solver(C, cad["evecs"][..., :k], pc["evecs"][..., :k],
+                          cad["xyz"], xyz, cad["valid"], pc["valid"], diam))
+            for out, C, k, xyz in cands]
 
 
 def select_uniforms(idx: int, bsz: int, hyps: int) -> np.ndarray:
@@ -168,12 +143,11 @@ def _select_winner(cfg, batch, host, cand_list, idx: int, select_draws):
         smat = [-(pv.sum(-1).cpu().numpy() / (margin if ci else 1.0))
                 for ci, (_, _, pv) in enumerate(cand_list)]
     smat = np.stack(smat)
-    winner = smat.argmin(axis=0)
-    # weak-base engagement: strong base maps are never replaced
     o0, pr0, pv0 = cand_list[0]
-    base_surv = pv0.sum(-1).cpu().numpy()
-    n_pc = host["pc"]["valid"].sum(axis=-1)
-    winner = np.where(base_surv < cfg.eval.select_trigger * n_pc, winner, 0)
+    winner = select_candidate(
+        torch.as_tensor(smat), pv0.sum(-1).cpu(),
+        torch.as_tensor(host["pc"]["valid"].sum(axis=-1)),
+        cfg.eval.select_trigger).numpy()
     out = {k: o0[k].cpu().numpy().copy() for k in OUT_KEYS}
     pairs, pvalid = pr0.cpu().numpy().copy(), pv0.cpu().numpy().copy()
     for ci in range(1, len(cand_list)):
@@ -226,16 +200,11 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
     if save_dir:
         save_dir.mkdir(parents=True, exist_ok=True)
 
-    zk = cfg.eval.zoomout_k
-    k_cols = zk if zk else n_fmap
-    refine = (_zoomout(zk, cfg.eval.zoomout_step, cfg.eval.zoomout_gate_tau)
-              if zk else None)
-    tta = cfg.eval.tta_rotations
-    if (tta > 1 or refine is not None) and not use_spatial:
+    if (cfg.eval.tta_rotations > 1 or cfg.eval.zoomout_k) \
+            and not use_spatial:
         raise ValueError("eval.tta_rotations / eval.zoomout_k need the "
                          "spatial_filtering solver: its survivor count "
                          "is the candidate-selection signal")
-    rot_bank = so3_bank(tta) if tta > 1 else None
     select_draws = select_draws or select_uniforms
 
     per_obj: dict[int, list] = {}
@@ -243,8 +212,7 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
     with torch.inference_mode():
         for host in loader:
             batch = to_device(host, dev)
-            cand_list = _batch_candidates(fwd, solver, refine, batch,
-                                          rot_bank, n_fmap, k_cols)
+            cand_list = _batch_candidates(fwd, solver, batch, cfg)
             bsz = host["diam_cad"].shape[0]
             if len(cand_list) == 1:
                 out, pairs, pvalid = cand_list[0]
