@@ -31,6 +31,10 @@ from .solvers.multistart import disambiguate_pose_depth
 from .spectral.device_lbo import device_pc_operators
 
 MAX_RAW = 16384   # backprojected points kept per instance
+_NO_GRAD = ("a gradient-feature model (with_gradient_features) needs the "
+            "partial cloud's tangent-gradient operators, which serving does "
+            "not build (the JAX package's pad_cad_operators carries none "
+            "either)")
 
 
 def pad_operators(ops: dict, v: int, device) -> dict:
@@ -86,7 +90,10 @@ class Predictor:
         the base map protected by the select_margin handicap and the
         select_trigger weak-base gate. predict_with_operators stays
         base-only (it has no depth image). fps_groups > 1 (grouped FPS)
-        is not ported and raises."""
+        is not ported and raises. A gradient-feature model raises
+        ValueError: serving builds no tangent-gradient operators."""
+        if model.cfg.with_gradient_features:
+            raise ValueError(_NO_GRAD)
         self.device = resolve_device(device)
         if mode not in ("online", "cached"):
             raise ValueError(f"mode must be 'online' or 'cached': {mode}")

@@ -7,6 +7,13 @@
 // there is no padding. Layout is the refiner's (dim, heads) channel
 // split: q (B, N, DIM, H), k/v (B, M, DIM, H), out (B, N, DIM, H);
 // channel c of a projection is c = d * H + h. The scale is 1/sqrt(DIM).
+// Instances: DIM = 16 with H = 1 or 2, and DIM = 32 with H = 1 (the
+// `double` refiner: 64 / 2 or 128 / 4 channels per head), at most 32
+// floats a token. For DIM x H > 32 (4 heads of 16, 2 or 4 heads of 32)
+// the wrapper (ops/kernels/attention.py) lays each head out as a frame of
+// its own, (B H, N, DIM, 1), so a thread's q and accumulator rows stay at
+// 64 floats each (a 4-head instance of 16 ran slower than the fold on an
+// H100; PERF.md).
 // A query row with no valid key returns zeros, as masked_softmax does
 // on the XLA branch.
 //
@@ -52,8 +59,12 @@
 //   segment order, so every launch gives the same bits. A segment
 //   without a valid key merges as (-inf, 0, 0) with weight 0; a row
 //   whose segments are all empty gets zeros and lse = -inf.
-// - f32 FMAs and expf throughout, as the plain version computes it. q is
-//   multiplied by the scale once, at load: exact for 1/sqrt(16) = 0.25.
+// - f32 FMAs and expf throughout, as the plain version computes it. At
+//   DIM = 16 q is multiplied by the scale once, at load: exact for
+//   1/sqrt(16) = 0.25. At DIM = 32 the scale 1/sqrt(32) is not a power of
+//   two, so each score is scaled after its dot product, (q . k) * scale,
+//   in the plain version's order: one FMUL per (query, key), ~1/33 of the
+//   step's arithmetic.
 //
 // C interface (ctypes): returns cudaGetLastError() after the launches.
 
@@ -64,24 +75,26 @@
 
 namespace {
 
-constexpr int kDim = 16;
 constexpr int kThreads = 128;
 constexpr int kTK = 32;            // keys per staged tile: one bit each
 constexpr int kMaxSegTiles = 256;  // key tiles one segment can walk
 constexpr int kCombineThreads = 128;
 
-// Per head count: queries per thread (kQpt x H (query, head) rows) and
-// keys per online-softmax step.
-template <int H>
+// Per (head dim, head count): queries per thread (kQpt x H (query, head)
+// rows of DIM floats: 64 floats of q and of accumulator a thread) and keys
+// per online-softmax step; whether q is pre-scaled (exact only for a
+// power-of-two scale).
+template <int DIM, int H>
 struct Tiling {
-  static constexpr int kQpt = 4 / H, kCK = 8;
+  static constexpr int kQpt = 64 / (DIM * H), kCK = 8;
+  static constexpr bool kPreScale = DIM == 16;
 };
-template <int H>
-constexpr int kQueriesPerBlock = kThreads * Tiling<H>::kQpt;
+template <int DIM, int H>
+constexpr int kQueriesPerBlock = kThreads * Tiling<DIM, H>::kQpt;
 
 // grid (ceil(N / kQueriesPerBlock), segments, B). With one segment the
 // block writes out (and lse); with more it writes its partial state.
-template <int H>
+template <int DIM, int H>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -89,14 +102,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ out, float* __restrict__ lse,
                  float* __restrict__ part_acc, float* __restrict__ part_ml,
                  int n, int m, int segments, float scale) {
-  constexpr int kTok = kDim * H, kVec = kTok / 4, kQ = Tiling<H>::kQpt;
-  constexpr int kCK = Tiling<H>::kCK;
+  constexpr int kTok = DIM * H, kVec = kTok / 4;
+  constexpr int kQ = Tiling<DIM, H>::kQpt, kCK = Tiling<DIM, H>::kCK;
+  constexpr bool kPreScale = Tiling<DIM, H>::kPreScale;
+  const float qscale = kPreScale ? scale : 1.f;
   __shared__ __align__(16) float ks[2][kTK][kTok];
   __shared__ __align__(16) float vs[2][kTK][kTok];
   __shared__ unsigned words[kMaxSegTiles];
 
   const int batch = blockIdx.z, seg = blockIdx.y;
-  const int qbase = blockIdx.x * kQueriesPerBlock<H> + threadIdx.x;
+  const int qbase = blockIdx.x * kQueriesPerBlock<DIM, H> + threadIdx.x;
   const float* kb = k + (size_t)batch * m * kTok;
   const float* vb = v + (size_t)batch * m * kTok;
   const unsigned char* mb = kv_valid + (size_t)batch * m;
@@ -123,13 +138,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         reinterpret_cast<const float4*>(q + ((size_t)batch * n + row) * kTok);
 #pragma unroll
     for (int c4 = 0; c4 < kVec; ++c4) {
-      // q pre-scaled: for scale 1/sqrt(16) = 0.25, a power of two, every
-      // score comes out as (q . k) * scale does, bit for bit
+      // q pre-scaled at DIM = 16: for scale 1/sqrt(16) = 0.25, a power of
+      // two, every score comes out as (q . k) * scale does, bit for bit
       const float4 t = row < n ? qv[c4] : make_float4(0, 0, 0, 0);
-      qr[qi][4 * c4 + 0] = t.x * scale;
-      qr[qi][4 * c4 + 1] = t.y * scale;
-      qr[qi][4 * c4 + 2] = t.z * scale;
-      qr[qi][4 * c4 + 3] = t.w * scale;
+      qr[qi][4 * c4 + 0] = t.x * qscale;
+      qr[qi][4 * c4 + 1] = t.y * qscale;
+      qr[qi][4 * c4 + 2] = t.z * qscale;
+      qr[qi][4 * c4 + 3] = t.w * qscale;
     }
 #pragma unroll
     for (int c = 0; c < kTok; ++c) acc[qi][c] = 0.f;
@@ -205,7 +220,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float cm = -INFINITY;
 #pragma unroll
           for (int jj = 0; jj < kCK; ++jj) {
-            const float x = (cw >> jj) & 1u ? s[qi][h][jj] : -INFINITY;
+            const float sc = kPreScale ? s[qi][h][jj] : s[qi][h][jj] * scale;
+            const float x = (cw >> jj) & 1u ? sc : -INFINITY;
             s[qi][h][jj] = x;
             cm = fmaxf(cm, x);
           }
@@ -213,7 +229,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float corr = expf(mx[qi][h] - nm);  // 0 on the first step
           sm[qi][h] *= corr;
 #pragma unroll
-          for (int d = 0; d < kDim; ++d) acc[qi][d * H + h] *= corr;
+          for (int d = 0; d < DIM; ++d) acc[qi][d * H + h] *= corr;
 #pragma unroll
           for (int jj = 0; jj < kCK; ++jj) {
             const float p = expf(s[qi][h][jj] - nm);  // 0 for masked keys
@@ -291,12 +307,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // One thread per (frame, query, 4 channels): the segments' states merged
 // in segment order against the largest running max of each head.
-template <int H>
+template <int DIM, int H>
 __global__ void __launch_bounds__(kCombineThreads)
 flash_combine_kernel(const float* __restrict__ part_acc,
                      const float* __restrict__ part_ml, float* __restrict__ out,
                      float* __restrict__ lse, int n, int segments, int total) {
-  constexpr int kTok = kDim * H, kVec = kTok / 4;
+  constexpr int kTok = DIM * H, kVec = kTok / 4;
   const int idx = blockIdx.x * kCombineThreads + threadIdx.x;
   if (idx >= total) return;
   const int c4 = idx % kVec;
@@ -345,7 +361,7 @@ flash_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <int H>
+template <int DIM, int H>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* valid, float* out, float* lse,
            float* part_acc, float* part_ml, int batch, int n, int m,
@@ -354,44 +370,48 @@ int launch(const float* q, const float* k, const float* v,
   if ((tiles + segments - 1) / segments > kMaxSegTiles ||
       (segments > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((n + kQueriesPerBlock<H> - 1) / kQueriesPerBlock<H>, segments,
-            batch);
-  flash_fwd_kernel<H><<<grid, kThreads, 0, stream>>>(
+  dim3 grid((n + kQueriesPerBlock<DIM, H> - 1) / kQueriesPerBlock<DIM, H>,
+            segments, batch);
+  flash_fwd_kernel<DIM, H><<<grid, kThreads, 0, stream>>>(
       q, k, v, valid, out, lse, part_acc, part_ml, n, m, segments, scale);
   if (segments > 1) {
-    const int total = batch * n * (kDim * H / 4);
-    flash_combine_kernel<H>
+    const int total = batch * n * (DIM * H / 4);
+    flash_combine_kernel<DIM, H>
         <<<(total + kCombineThreads - 1) / kCombineThreads, kCombineThreads,
            0, stream>>>(part_acc, part_ml, out, lse, n, segments, total);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
+template <int DIM, int H>
 int tiles(int* out) {
-  out[0] = kQueriesPerBlock<H>;
+  out[0] = kQueriesPerBlock<DIM, H>;
   out[1] = kTK;
   out[2] = kMaxSegTiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], flash_fwd_kernel<H>, kThreads, 0));
+      &out[3], flash_fwd_kernel<DIM, H>, kThreads, 0));
 }
 
 }  // namespace
 
-// The kernel's tiling for `heads`, for the wrapper's planner: {queries
-// per block, keys per tile, most key tiles per segment, resident blocks
-// per SM on this card}. Non-zero for a head count the kernel does not
-// take.
-extern "C" int flash_cross_attention_tiles(int heads, int* out) {
+// The kernel's tiling for (dim, heads), for the wrapper's planner:
+// {queries per block, keys per tile, most key tiles per segment, resident
+// blocks per SM on this card}. Non-zero for an instance the kernel does
+// not have.
+extern "C" int flash_cross_attention_tiles(int dim, int heads, int* out) {
+  if (dim == 32)
+    return heads == 1 ? tiles<32, 1>(out)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (dim != 16) return static_cast<int>(cudaErrorInvalidValue);
   switch (heads) {
-    case 1: return tiles<1>(out);
-    case 2: return tiles<2>(out);
-    case 4: return tiles<4>(out);
+    case 1: return tiles<16, 1>(out);
+    case 2: return tiles<16, 2>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// q (B, N, dim, H), k/v (B, M, dim, H) f32 and kv_valid (B, M) bytes,
+// q (B, N, dim, H), k/v (B, M, dim, H) f32 and kv_valid (B, M) bytes
+// (dim 16 with H 1 or 2; dim 32 with H 1),
 // contiguous, 16-byte aligned. With segments > 1: part_acc (B, segments,
 // N, dim * H) and part_ml (B, segments, N, H, 2) f32 scratch.
 extern "C" int flash_cross_attention_f32(const void* q, const void* k,
@@ -401,7 +421,8 @@ extern "C" int flash_cross_attention_f32(const void* q, const void* k,
                                          int m, int dim, int heads,
                                          int segments, float scale,
                                          void* stream) {
-  if (dim != kDim || segments < 1 || batch < 1 || n < 1 || m < 1)
+  if ((dim != 16 && dim != 32) || segments < 1 || batch < 1 || n < 1 ||
+      m < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -412,16 +433,17 @@ extern "C" int flash_cross_attention_f32(const void* q, const void* k,
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim == 32)
+    return heads == 1 ? launch<32, 1>(qf, kf, vf, mf, of, lf, pa, pm, batch,
+                                      n, m, segments, scale, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   switch (heads) {
     case 1:
-      return launch<1>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m, segments,
-                       scale, s);
+      return launch<16, 1>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m,
+                           segments, scale, s);
     case 2:
-      return launch<2>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m, segments,
-                       scale, s);
-    case 4:
-      return launch<4>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m, segments,
-                       scale, s);
+      return launch<16, 2>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m,
+                           segments, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

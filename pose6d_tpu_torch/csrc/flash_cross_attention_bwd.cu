@@ -9,6 +9,14 @@
 // direction of the refiner. Layout as the forward
 // (flash_cross_attention.cu): q, dq, out, dout (B, N, DIM, H); k, v,
 // dk, dv (B, M, DIM, H); channel c = d * H + h; scale 1/sqrt(DIM).
+// Instances: DIM = 16 with H = 1 or 2, and DIM = 32 with H = 1; for
+// DIM x H > 32 the wrapper lays each head out as a frame of its own, as
+// for the forward (a 4-head instance of 16 spilled registers at its 255
+// and ran slower than the fold on an H100; PERF.md). A
+// product over DIM takes DIM / 8 k-steps of m16n8k8 and an update DIM / 8
+// n-tiles of 8 columns, so the DIM = 32, H = 1 instance holds as many
+// fragments and accumulators as the DIM = 16, H = 2 one (two heads of two
+// k-steps each).
 //
 // FlashAttention-2 style recomputation from the forward's log-sum-exp
 // L (B, N, H): the (H, N, M) probabilities are never stored.
@@ -91,7 +99,6 @@
 
 namespace {
 
-constexpr int kDim = 16;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // queries per dq block, keys per dkv
@@ -100,14 +107,19 @@ constexpr int kMaxSegTiles = 256;   // tiles one segment can walk
 constexpr int kFlatThreads = 128;   // prep and merge passes
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int H>
+template <int DIM, int H>
 struct Shape {
-  static constexpr int kTok = kDim * H;     // floats per token
+  static constexpr int kTok = DIM * H;      // floats per token
   static constexpr int kStride = kTok + 4;  // shared row stride
   static constexpr int kVec = kTok / 4;     // float4 per token
-  // three blocks per SM for one or two heads: registers capped at 168
-  static constexpr int kMinBlocks = H <= 2 ? 3 : 1;
+  // k-steps of a product over DIM, and n-tiles (of 8 columns) of an
+  // update: both DIM / 8
+  static constexpr int kSteps = DIM / 8;
+  // a lane's share of a token: 2 kSteps consecutive d of each head
+  static constexpr int kPart = 2 * kSteps * H;
 };
+// three blocks per SM: registers capped at 168
+constexpr int kMinBlocks = 3;
 
 // Walks a segment's live tiles (words[i] != 0 for i < nt) through two
 // shared buffers: stage(i, buf) issues tile i's copies, body(i, buf)
@@ -187,14 +199,18 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
   mma(d, a.hi, b.hi);
 }
 
-// d = a[0] b[0] + a[1] b[1], a fresh product over both k-steps, in
-// 3xTF32.
-__device__ __forceinline__ void product(float (&d)[4], const FragA (&a)[2],
-                                        const FragB& b0, const FragB& b1) {
+// d = sum over k-steps s of a[s] b[s], a fresh product, in 3xTF32.
+// b[s] is built from `row` (a lane's share of one token, kPart floats):
+// k-slots t and t + 4 of step s are its d = 2 s and 2 s + 1 of head h.
+template <int DIM, int H>
+__device__ __forceinline__ void product(
+    float (&d)[4], const FragA (&a)[Shape<DIM, H>::kSteps],
+    const float (&row)[Shape<DIM, H>::kPart], int h) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] = 0.f;
-  mma3(d, a[0], b0);
-  mma3(d, a[1], b1);
+#pragma unroll
+  for (int st = 0; st < Shape<DIM, H>::kSteps; ++st)
+    mma3(d, a[st], FragB(row[2 * st * H + h], row[(2 * st + 1) * H + h]));
 }
 
 // TF32 mma.sync throughput probe: every warp issues `iters` x 8
@@ -247,44 +263,47 @@ __device__ __forceinline__ void store(float* p, const float (&v)[N]) {
         make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
 }
 
-// The A fragments (both k-steps) of one head for rows r and r + 8 of
-// `rows` (a token of 4 H floats from channel 4 t H on, as load() reads
-// it): k-slot (step s, t, half) is d = 4 t + 2 s + half.
-template <int H>
-__device__ __forceinline__ void frag_rows(const float (&r)[4 * H],
-                                          const float (&r8)[4 * H], int h,
-                                          FragA (&f)[2]) {
+// The A fragments (every k-step) of one head for rows r and r + 8 of
+// `rows` (a lane's share of a token: kPart floats from channel kPart t
+// on, as load() reads it): k-slot (step s, t, half) is d = 2 kSteps t +
+// 2 s + half (d = 4 t + 2 s + half at DIM = 16).
+template <int DIM, int H>
+__device__ __forceinline__ void frag_rows(
+    const float (&r)[Shape<DIM, H>::kPart],
+    const float (&r8)[Shape<DIM, H>::kPart], int h,
+    FragA (&f)[Shape<DIM, H>::kSteps]) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s)
+  for (int s = 0; s < Shape<DIM, H>::kSteps; ++s)
     f[s].set(r[2 * s * H + h], r8[2 * s * H + h], r[(2 * s + 1) * H + h],
              r8[(2 * s + 1) * H + h]);
 }
 
-// One token's 4 H floats from channel 4 t H on, from device memory;
-// zeros for a row past the end.
-template <int H>
-__device__ __forceinline__ void token_quad(const float* base, int row,
-                                           int rows, int t,
-                                           float (&v)[4 * H]) {
+// A lane's share of one token, kPart floats from channel kPart t on, from
+// device memory; zeros for a row past the end.
+template <int DIM, int H>
+__device__ __forceinline__ void token_part(
+    const float* base, int row, int rows, int t,
+    float (&v)[Shape<DIM, H>::kPart]) {
+  constexpr int kPart = Shape<DIM, H>::kPart;
   if (row < rows) {
-    load(base + (size_t)row * Shape<H>::kTok + 4 * t * H, v);
+    load(base + (size_t)row * Shape<DIM, H>::kTok + kPart * t, v);
   } else {
 #pragma unroll
-    for (int i = 0; i < 4 * H; ++i) v[i] = 0.f;
+    for (int i = 0; i < kPart; ++i) v[i] = 0.f;
   }
 }
 
 // Per (frame, query): ld = (L log2 e or +inf, D) per head, and the tile's
 // live word. One thread per query of npad (N rounded up to kRows) per
 // frame, so a warp is one tile; rows past N get (+inf, 0).
-template <int H>
+template <int DIM, int H>
 __global__ void __launch_bounds__(kFlatThreads)
 flash_bwd_prep_kernel(const float* __restrict__ out,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ ld,
                       unsigned* __restrict__ words, int n, int npad,
                       int total) {
-  constexpr int kTok = Shape<H>::kTok;
+  constexpr int kTok = Shape<DIM, H>::kTok;
   const int idx = blockIdx.x * kFlatThreads + threadIdx.x;
   if (idx >= total) return;  // whole warps: total is a multiple of 32
   const int batch = idx / npad, i = idx % npad;
@@ -336,42 +355,45 @@ __device__ __forceinline__ void key_words(const unsigned char* mb, int m,
 }
 
 // Writes rows r and r + 8 of a warp's (dim x head) accumulators,
-// acc[h][n-tile][4] in m16n8 layout (columns d = 2 g' + n-tile), times
-// `mul`; zeros where `zero`. Lane (g, t) holds d = 4 t .. 4 t + 3 of both
-// rows: channels 4 t H .. 4 t H + 4 H - 1.
-template <int H>
-__device__ __forceinline__ void write_rows(float* base, int row, int rows,
-                                           int t, const float (&acc)[H][2][4],
-                                           float mul, bool zero0,
-                                           bool zero8) {
+// acc[h][n-tile][4] in m16n8 layout (columns d = kSteps g' + n-tile),
+// times `mul`; zeros where `zero`. Lane (g, t) holds d = 2 kSteps t ..
+// 2 kSteps t + 2 kSteps - 1 of both rows: channels kPart t .. kPart t +
+// kPart - 1.
+template <int DIM, int H>
+__device__ __forceinline__ void write_rows(
+    float* base, int row, int rows, int t,
+    const float (&acc)[H][Shape<DIM, H>::kSteps][4], float mul, bool zero0,
+    bool zero8) {
+  constexpr int kSteps = Shape<DIM, H>::kSteps, kPart = Shape<DIM, H>::kPart;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = row + 8 * half;
     if (r >= rows) continue;
     const bool zero = half ? zero8 : zero0;
-    float v[4 * H];
+    float v[kPart];
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      // c0 / c2: column 2 t -> d = 4 t + n-tile; c1 / c3: d = 4 t + 2 +
-      // n-tile
-      v[0 * H + h] = acc[h][0][2 * half] * mul;
-      v[1 * H + h] = acc[h][1][2 * half] * mul;
-      v[2 * H + h] = acc[h][0][2 * half + 1] * mul;
-      v[3 * H + h] = acc[h][1][2 * half + 1] * mul;
+      // c0 / c2: column 2 t -> d = 2 kSteps t + n-tile; c1 / c3: d =
+      // 2 kSteps t + kSteps + n-tile
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int nt = 0; nt < kSteps; ++nt)
+          v[(e * kSteps + nt) * H + h] = acc[h][nt][2 * half + e] * mul;
     }
     if (zero) {
 #pragma unroll
-      for (int e = 0; e < 4 * H; ++e) v[e] = 0.f;
+      for (int e = 0; e < kPart; ++e) v[e] = 0.f;
     }
-    store(base + (size_t)r * Shape<H>::kTok + 4 * t * H, v);
+    store(base + (size_t)r * Shape<DIM, H>::kTok + kPart * t, v);
   }
 }
 
 // grid (ceil(N / kRows), segments, B). With one segment the block writes
 // dq (times scale); with more, its partial sum goes to
 // dq_out[(batch * segments + seg) * N ...].
-template <int H>
-__global__ void __launch_bounds__(kThreads, Shape<H>::kMinBlocks)
+template <int DIM, int H>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const unsigned char* __restrict__ kv_valid,
@@ -380,8 +402,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const unsigned* __restrict__ qwords,
                     float* __restrict__ dq_out, int n, int m, int npad,
                     int segments, float scale_log2e, float mul) {
-  constexpr int kTok = Shape<H>::kTok, kStride = Shape<H>::kStride;
-  constexpr int kVec = Shape<H>::kVec;
+  using S = Shape<DIM, H>;
+  constexpr int kTok = S::kTok, kStride = S::kStride, kVec = S::kVec;
+  constexpr int kSteps = S::kSteps, kPart = S::kPart;
   __shared__ __align__(16) float ks[2][kTile][kStride];
   __shared__ __align__(16) float vs[2][kTile][kStride];
   __shared__ unsigned words[kMaxSegTiles];
@@ -399,16 +422,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the warp's 16 rows are half of a 32-row word
   const unsigned mine = (qw[warp / 2] >> (16 * (warp & 1))) & 0xffffu;
 
-  float acc[H][2][4];
+  float acc[H][kSteps][4];
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < kSteps; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[h][nt][e] = 0.f;
 
   if (any == 0u) {  // no live query: dq = 0 (uniform)
-    write_rows<H>(ob, r0 + g, n, t, acc, 0.f, false, false);
+    write_rows<DIM, H>(ob, r0 + g, n, t, acc, 0.f, false, false);
     return;
   }
 
@@ -419,20 +442,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   key_words(kv_valid + (size_t)batch * m, m, seg, segments, nt, words);
 
   // the warp's own rows: q and dout as A fragments, (L log2 e, D)
-  FragA qf[H][2], df[H][2];
+  FragA qf[H][kSteps], df[H][kSteps];
   float Lr[2][H], Dr[2][H];
   {
-    float a[4 * H], a8[4 * H];
+    float a[kPart], a8[kPart];
     const float* qb = q + (size_t)batch * n * kTok;
     const float* db = dout + (size_t)batch * n * kTok;
-    token_quad<H>(qb, r0 + g, n, t, a);
-    token_quad<H>(qb, r0 + g + 8, n, t, a8);
+    token_part<DIM, H>(qb, r0 + g, n, t, a);
+    token_part<DIM, H>(qb, r0 + g + 8, n, t, a8);
 #pragma unroll
-    for (int h = 0; h < H; ++h) frag_rows<H>(a, a8, h, qf[h]);
-    token_quad<H>(db, r0 + g, n, t, a);
-    token_quad<H>(db, r0 + g + 8, n, t, a8);
+    for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, qf[h]);
+    token_part<DIM, H>(db, r0 + g, n, t, a);
+    token_part<DIM, H>(db, r0 + g + 8, n, t, a8);
 #pragma unroll
-    for (int h = 0; h < H; ++h) frag_rows<H>(a, a8, h, df[h]);
+    for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, df[h]);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float l[2 * H];
@@ -462,23 +485,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c0 = 0; c0 < kTile; c0 += 8) {
       const unsigned cw = (wd >> c0) & 0xffu;
-      // s and dout . v: B fragments from key row c0 + g, d = 4 t ..
-      float kr[4 * H], vr[4 * H];
-      load(&ks[buf][c0 + g][4 * t * H], kr);
-      load(&vs[buf][c0 + g][4 * t * H], vr);
+      // s and dout . v: B fragments from key row c0 + g, d = 2 kSteps t ..
+      float kr[kPart], vr[kPart];
+      load(&ks[buf][c0 + g][kPart * t], kr);
+      load(&vs[buf][c0 + g][kPart * t], vr);
       // the dq update's B fragments: keys c0 + 2 t and c0 + 2 t + 1,
-      // d = 2 g + n-tile
-      float ka[2 * H], kb2[2 * H];
-      load(&ks[buf][c0 + 2 * t][2 * g * H], ka);
-      load(&ks[buf][c0 + 2 * t + 1][2 * g * H], kb2);
+      // d = kSteps g + n-tile
+      float ka[kSteps * H], kb2[kSteps * H];
+      load(&ks[buf][c0 + 2 * t][kSteps * g * H], ka);
+      load(&ks[buf][c0 + 2 * t + 1][kSteps * g * H], kb2);
       const bool m0 = (cw >> (2 * t)) & 1u, m1 = (cw >> (2 * t + 1)) & 1u;
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         float s[4], dp[4];
-        product(s, qf[h], FragB(kr[h], kr[H + h]),
-                FragB(kr[2 * H + h], kr[3 * H + h]));
-        product(dp, df[h], FragB(vr[h], vr[H + h]),
-                FragB(vr[2 * H + h], vr[3 * H + h]));
+        product<DIM, H>(s, qf[h], kr, h);
+        product<DIM, H>(dp, df[h], vr, h);
         // accumulator (row g / g + 8, key 2 t / 2 t + 1); a masked key
         // gets exp2(-inf) = 0
         const float p0 = ex2(m0 ? fmaf(s[0], scale_log2e, -Lr[0][h])
@@ -493,19 +514,19 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         ds.set(p0 * (dp[0] - Dr[0][h]), p2 * (dp[2] - Dr[1][h]),
                p1 * (dp[1] - Dr[0][h]), p3 * (dp[3] - Dr[1][h]));
 #pragma unroll
-        for (int n8 = 0; n8 < 2; ++n8)
+        for (int n8 = 0; n8 < kSteps; ++n8)
           mma3(acc[h][n8], ds, FragB(ka[n8 * H + h], kb2[n8 * H + h]));
       }
     }
   });
-  write_rows<H>(ob, r0 + g, n, t, acc, mul, false, false);
+  write_rows<DIM, H>(ob, r0 + g, n, t, acc, mul, false, false);
 }
 
 // grid (ceil(M / kRows), segments, B). With one segment the block writes
 // dk (times scale) and dv; with more, its partial sums go to
 // dk_out / dv_out[(batch * segments + seg) * M ...].
-template <int H>
-__global__ void __launch_bounds__(kThreads, Shape<H>::kMinBlocks)
+template <int DIM, int H>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ kv_valid,
@@ -515,8 +536,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dk_out, float* __restrict__ dv_out,
                      int n, int m, int npad, int segments, float scale_log2e,
                      float mul) {
-  constexpr int kTok = Shape<H>::kTok, kStride = Shape<H>::kStride;
-  constexpr int kVec = Shape<H>::kVec;
+  using S = Shape<DIM, H>;
+  constexpr int kTok = S::kTok, kStride = S::kStride, kVec = S::kVec;
+  constexpr int kSteps = S::kSteps, kPart = S::kPart;
   __shared__ __align__(16) float qs[2][kTile][kStride];
   __shared__ __align__(16) float dos[2][kTile][kStride];
   __shared__ __align__(16) float lds[2][kTile][2 * H];
@@ -532,18 +554,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool v8 = r0 + g + 8 < m && mb[r0 + g + 8];
   const size_t orow = ((size_t)batch * segments + seg) * m * kTok;
 
-  float dka[H][2][4], dva[H][2][4];
+  float dka[H][kSteps][4], dva[H][kSteps][4];
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < kSteps; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dka[h][nt][e] = dva[h][nt][e] = 0.f;
 
   // every key of the block masked: dk = dv = 0 (uniform)
   if (!__syncthreads_or(v0 || v8)) {
-    write_rows<H>(dk_out + orow, r0 + g, m, t, dka, 0.f, true, true);
-    write_rows<H>(dv_out + orow, r0 + g, m, t, dva, 0.f, true, true);
+    write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, dka, 0.f, true, true);
+    write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, dva, 0.f, true, true);
     return;
   }
   const bool mine = __any_sync(0xffffffffu, v0 || v8);
@@ -558,19 +580,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     words[i] = qw[seg + i * segments];
 
   // the warp's own keys: k and v as A fragments
-  FragA kf[H][2], vf[H][2];
+  FragA kf[H][kSteps], vf[H][kSteps];
   {
-    float a[4 * H], a8[4 * H];
+    float a[kPart], a8[kPart];
     const float* kb = k + (size_t)batch * m * kTok;
     const float* vb = v + (size_t)batch * m * kTok;
-    token_quad<H>(kb, r0 + g, m, t, a);
-    token_quad<H>(kb, r0 + g + 8, m, t, a8);
+    token_part<DIM, H>(kb, r0 + g, m, t, a);
+    token_part<DIM, H>(kb, r0 + g + 8, m, t, a8);
 #pragma unroll
-    for (int h = 0; h < H; ++h) frag_rows<H>(a, a8, h, kf[h]);
-    token_quad<H>(vb, r0 + g, m, t, a);
-    token_quad<H>(vb, r0 + g + 8, m, t, a8);
+    for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, kf[h]);
+    token_part<DIM, H>(vb, r0 + g, m, t, a);
+    token_part<DIM, H>(vb, r0 + g + 8, m, t, a8);
 #pragma unroll
-    for (int h = 0; h < H; ++h) frag_rows<H>(a, a8, h, vf[h]);
+    for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, vf[h]);
   }
   __syncthreads();  // words[] complete
 
@@ -593,16 +615,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c0 = 0; c0 < kTile; c0 += 8) {
       // s^T and (dout . v)^T: B fragments from query row c0 + g
-      float qr[4 * H], dr[4 * H];
-      load(&qs[buf][c0 + g][4 * t * H], qr);
-      load(&dos[buf][c0 + g][4 * t * H], dr);
+      float qr[kPart], dr[kPart];
+      load(&qs[buf][c0 + g][kPart * t], qr);
+      load(&dos[buf][c0 + g][kPart * t], dr);
       // the updates' B fragments: queries c0 + 2 t and c0 + 2 t + 1,
-      // d = 2 g + n-tile
-      float qa[2 * H], qb2[2 * H], da[2 * H], db2[2 * H];
-      load(&qs[buf][c0 + 2 * t][2 * g * H], qa);
-      load(&qs[buf][c0 + 2 * t + 1][2 * g * H], qb2);
-      load(&dos[buf][c0 + 2 * t][2 * g * H], da);
-      load(&dos[buf][c0 + 2 * t + 1][2 * g * H], db2);
+      // d = kSteps g + n-tile
+      float qa[kSteps * H], qb2[kSteps * H], da[kSteps * H],
+          db2[kSteps * H];
+      load(&qs[buf][c0 + 2 * t][kSteps * g * H], qa);
+      load(&qs[buf][c0 + 2 * t + 1][kSteps * g * H], qb2);
+      load(&dos[buf][c0 + 2 * t][kSteps * g * H], da);
+      load(&dos[buf][c0 + 2 * t + 1][kSteps * g * H], db2);
       // (L log2 e, D) per head of queries c0 + 2 t, c0 + 2 t + 1
       float la[2 * H], lc[2 * H];
       load(&lds[buf][c0 + 2 * t][0], la);
@@ -610,10 +633,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         float s[4], dp[4];
-        product(s, kf[h], FragB(qr[h], qr[H + h]),
-                FragB(qr[2 * H + h], qr[3 * H + h]));
-        product(dp, vf[h], FragB(dr[h], dr[H + h]),
-                FragB(dr[2 * H + h], dr[3 * H + h]));
+        product<DIM, H>(s, kf[h], qr, h);
+        product<DIM, H>(dp, vf[h], dr, h);
         // accumulator (key g / g + 8, query 2 t / 2 t + 1); a dead
         // query has L = +inf, so p = 0
         const float p0 = ex2(fmaf(s[0], scale_log2e, -la[2 * h]));
@@ -625,7 +646,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         ds.set(p0 * (dp[0] - la[2 * h + 1]), p2 * (dp[2] - la[2 * h + 1]),
                p1 * (dp[1] - lc[2 * h + 1]), p3 * (dp[3] - lc[2 * h + 1]));
 #pragma unroll
-        for (int n8 = 0; n8 < 2; ++n8) {
+        for (int n8 = 0; n8 < kSteps; ++n8) {
           mma3(dva[h][n8], pf, FragB(da[n8 * H + h], db2[n8 * H + h]));
           mma3(dka[h][n8], ds, FragB(qa[n8 * H + h], qb2[n8 * H + h]));
         }
@@ -634,8 +655,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   });
   // a masked key's row may hold anything (rows of a product are
   // independent): it is written as zeros
-  write_rows<H>(dk_out + orow, r0 + g, m, t, dka, mul, !v0, !v8);
-  write_rows<H>(dv_out + orow, r0 + g, m, t, dva, 1.f, !v0, !v8);
+  write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, dka, mul, !v0, !v8);
+  write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, dva, 1.f, !v0, !v8);
 }
 
 // out[b, r, :] = mul * sum over s in order of part[b, s, r, :], one
@@ -669,14 +690,14 @@ int merge(const float* part, float* out, int batch, int rows, int tok,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
+template <int DIM, int H>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* valid, const float* out, const float* dout,
            const float* lse, float* ld, unsigned* qwords, float* dq,
            float* dk, float* dv, float* part_q, float* part_k,
            float* part_v, int batch, int n, int m, int seg_q, int seg_kv,
            float scale, cudaStream_t stream) {
-  constexpr int kTok = Shape<H>::kTok;
+  constexpr int kTok = Shape<DIM, H>::kTok;
   const int npad = (n + kRows - 1) / kRows * kRows;
   const int ktiles = (m + kTile - 1) / kTile, qtiles = npad / kTile;
   if ((ktiles + seg_q - 1) / seg_q > kMaxSegTiles ||
@@ -686,11 +707,11 @@ int launch(const float* q, const float* k, const float* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const float sl2e = scale * kLog2e;
   const int total = batch * npad;
-  flash_bwd_prep_kernel<H>
+  flash_bwd_prep_kernel<DIM, H>
       <<<(total + kFlatThreads - 1) / kFlatThreads, kFlatThreads, 0,
          stream>>>(out, dout, lse, ld, qwords, n, npad, total);
   dim3 gq((n + kRows - 1) / kRows, seg_q, batch);
-  flash_bwd_dq_kernel<H><<<gq, kThreads, 0, stream>>>(
+  flash_bwd_dq_kernel<DIM, H><<<gq, kThreads, 0, stream>>>(
       q, k, v, valid, dout, ld, qwords, seg_q > 1 ? part_q : dq, n, m, npad,
       seg_q, sl2e, seg_q > 1 ? 1.f : scale);
   if (seg_q > 1) {
@@ -698,7 +719,7 @@ int launch(const float* q, const float* k, const float* v,
     if (e) return e;
   }
   dim3 gk((m + kRows - 1) / kRows, seg_kv, batch);
-  flash_bwd_dkv_kernel<H><<<gk, kThreads, 0, stream>>>(
+  flash_bwd_dkv_kernel<DIM, H><<<gk, kThreads, 0, stream>>>(
       q, k, v, valid, dout, ld, qwords, seg_kv > 1 ? part_k : dk,
       seg_kv > 1 ? part_v : dv, n, m, npad, seg_kv, sl2e,
       seg_kv > 1 ? 1.f : scale);
@@ -710,15 +731,16 @@ int launch(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
+template <int DIM, int H>
 int tiles(int kernel, int* out) {
   out[0] = kRows;
   out[1] = kTile;
   out[2] = kMaxSegTiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[3],
-      kernel == 0 ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<H>)
-                  : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<H>),
+      kernel == 0
+          ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<DIM, H>)
+          : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<DIM, H>),
       kThreads, 0));
 }
 
@@ -733,23 +755,27 @@ extern "C" int flash_cross_attention_bwd_mma_rate(int blocks, int iters,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiling of the dq (kernel 0) or dkv (kernel 1) kernel for `heads`,
-// for the wrapper's planner: {rows per block, walked rows per tile, most
-// tiles per segment, resident blocks per SM on this card}. Non-zero for
-// a head count the kernels do not take.
-extern "C" int flash_cross_attention_bwd_tiles(int heads, int kernel,
-                                               int* out) {
+// The tiling of the dq (kernel 0) or dkv (kernel 1) kernel for (dim,
+// heads), for the wrapper's planner: {rows per block, walked rows per
+// tile, most tiles per segment, resident blocks per SM on this card}.
+// Non-zero for an instance the kernels do not have.
+extern "C" int flash_cross_attention_bwd_tiles(int dim, int heads,
+                                               int kernel, int* out) {
   if (kernel != 0 && kernel != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 32)
+    return heads == 1 ? tiles<32, 1>(kernel, out)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (dim != 16) return static_cast<int>(cudaErrorInvalidValue);
   switch (heads) {
-    case 1: return tiles<1>(kernel, out);
-    case 2: return tiles<2>(kernel, out);
-    case 4: return tiles<4>(kernel, out);
+    case 1: return tiles<16, 1>(kernel, out);
+    case 2: return tiles<16, 2>(kernel, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// q, out, dout (B, n, dim, heads), k, v (B, m, dim, heads) f32, kv_valid
+// q, out, dout (B, n, dim, heads), k, v (B, m, dim, heads) f32 (dim 16
+// with heads 1 or 2; dim 32 with heads 1), kv_valid
 // (B, m) bytes, lse (B, n, heads) f32, contiguous, 16-byte aligned.
 // Scratch: ld (B, npad, heads, 2) f32 and qwords (B, npad / 32) u32 with
 // npad = n rounded up to the rows per block; with seg_q > 1, part_q (B, seg_q, n, dim *
@@ -761,26 +787,32 @@ extern "C" int flash_cross_attention_bwd_f32(
     void* qwords, void* dq, void* dk, void* dv, void* part_q, void* part_k,
     void* part_v, int batch, int n, int m, int dim, int heads, int seg_q,
     int seg_kv, float scale, void* stream) {
-  if (dim != kDim || batch < 1 || n < 1 || m < 1 || seg_q < 1 || seg_kv < 1)
+  if ((dim != 16 && dim != 32) || batch < 1 || n < 1 || m < 1 || seg_q < 1 ||
+      seg_kv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
   const unsigned char* mv = static_cast<const unsigned char*>(kv_valid);
   unsigned* qw = static_cast<unsigned*>(qwords);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim == 32)
+    return heads == 1
+               ? launch<32, 1>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
+                               w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
+                               w(part_k), w(part_v), batch, n, m, seg_q,
+                               seg_kv, scale, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   switch (heads) {
     case 1:
-      return launch<1>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse), w(ld),
-                       qw, w(dq), w(dk), w(dv), w(part_q), w(part_k),
-                       w(part_v), batch, n, m, seg_q, seg_kv, scale, s);
+      return launch<16, 1>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
+                           w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
+                           w(part_k), w(part_v), batch, n, m, seg_q, seg_kv,
+                           scale, s);
     case 2:
-      return launch<2>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse), w(ld),
-                       qw, w(dq), w(dk), w(dv), w(part_q), w(part_k),
-                       w(part_v), batch, n, m, seg_q, seg_kv, scale, s);
-    case 4:
-      return launch<4>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse), w(ld),
-                       qw, w(dq), w(dk), w(dv), w(part_q), w(part_k),
-                       w(part_v), batch, n, m, seg_q, seg_kv, scale, s);
+      return launch<16, 2>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
+                           w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
+                           w(part_k), w(part_v), batch, n, m, seg_q, seg_kv,
+                           scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

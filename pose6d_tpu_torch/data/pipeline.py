@@ -2,7 +2,8 @@
 pose6d_tpu/data/pipeline.py).
 
 make_sample pads one (CAD, PC, obj) triple to fixed shapes: CAD to
-V_CAD (5120), the partial cloud to V_PC (2048), masks explicit; the
+V_CAD (5120), the partial cloud to V_PC (2048), masks explicit, with
+the gather-form gradient operators where the shapes carry them; the
 ragged GT pair list becomes (a) the 30x30 normal equations of the C_gt
 least-squares solve and (b) a fixed buffer of at most NCE_PAIRS pairs
 for the NCE loss. collate stacks samples (numpy, leading B);
@@ -53,13 +54,23 @@ def make_sample(cad: dict, pc: dict, obj: dict, rng=None,
     pair_valid[:len(sub)] = True
 
     def shape_block(ops, v_max, n_valid):
-        return {
+        block = {
             "xyz": pad_to(ops["xyz"], v_max).astype(np.float32),
             "mass": pad_to(ops["mass"], v_max).astype(np.float32),
             "evals": np.asarray(ops["evals"], np.float32)[:K_EIG],
             "evecs": pad_to(ops["evecs"], v_max).astype(np.float32),
             "valid": np.arange(v_max) < n_valid,
         }
+        # optional gather-form tangent-gradient operators (the gradient-
+        # feature model); padded rows gather row 0 with zero coefficients
+        if "grad_idx" in ops:
+            block["grad_idx"] = pad_to(
+                np.asarray(ops["grad_idx"]), v_max).astype(np.int32)
+            block["grad_cx"] = pad_to(
+                np.asarray(ops["grad_cx"]), v_max).astype(np.float32)
+            block["grad_cy"] = pad_to(
+                np.asarray(ops["grad_cy"]), v_max).astype(np.float32)
+        return block
 
     return {
         "cad": shape_block(cad, v_cad, nc),

@@ -1,10 +1,14 @@
 """Cross-attention refinement + overlap head (port of pose6d_tpu/models/attention.py).
 
-The default configuration only: attention_type="normal" and
-cross_sampling_ratio=1.0 (the other variants are not ported yet). The
-V1 x V2 attention runs through ops/kernels/attention.py: the
-hand-written online-softmax kernel on the card (and, when autograd
-needs it, the hand-written backward), its plain f32 version on the CPU.
+Every configuration of the JAX package: attention_type "normal"
+(attention at gnn_dim, the overlap head on the refined features) or
+"double" (attention at gnn_dim + overlap_feat_dim, last_lin emitting
+n_in + overlap_feat_dim, the overlap head on the extra split), and
+cross_sampling_ratio < 1 (the x side attends on an FPS subsample, whose
+features nn_interpolate carries back to every point). The V1 x V2
+attention runs through ops/kernels/attention.py: the hand-written
+online-softmax kernel on the card (and, when autograd needs it, the
+hand-written backward), its plain f32 version on the CPU.
 """
 from __future__ import annotations
 
@@ -79,6 +83,19 @@ class AttentionalPropagation(nn.Module):
         return self.mlp(torch.cat([x, message], dim=-1), x_valid)
 
 
+def nn_interpolate(sampled_feats, dists, idx):
+    """PointNet++-style feature propagation: features at S sampled points
+    -> all V points by inverse-distance-weighted 3-NN. sampled_feats (B,
+    S, C); dists (B, V, 3) distances to each point's 3 nearest sampled
+    points; idx (B, V, 3) their indices into S. Returns (B, V, C)."""
+    w = 1.0 / torch.clamp(dists, min=1e-10)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    bsz, v, k = idx.shape
+    rows = torch.gather(sampled_feats, 1, idx.reshape(bsz, v * k, 1).expand(
+        -1, -1, sampled_feats.shape[-1])).reshape(bsz, v, k, -1)
+    return torch.einsum("bvk,bvkc->bvc", w, rows)
+
+
 class OverlapPredictorNet(nn.Module):
     """Siamese sigmoid overlap head on L2-normalized features."""
 
@@ -97,27 +114,64 @@ class OverlapPredictorNet(nn.Module):
 
 class CrossAttentionRefinementNet(nn.Module):
     def __init__(self, n_in: int = 32, num_heads: int = 2, gnn_dim: int = 32,
-                 n_layers: int = 1, overlap_feat_dim: int = 32):
+                 n_layers: int = 1, overlap_feat_dim: int = 32,
+                 attention_type: str = "normal",
+                 cross_sampling_ratio: float = 1.0):
         super().__init__()
-        self.first_lin = nn.Linear(n_in, gnn_dim)
+        if attention_type == "normal":
+            attn_dim, out_dim, ov_in = gnn_dim, n_in, n_in
+        elif attention_type == "double":
+            attn_dim = gnn_dim + overlap_feat_dim
+            out_dim = n_in + overlap_feat_dim
+            ov_in = overlap_feat_dim
+        else:
+            raise ValueError(attention_type)
+        self.n_in = n_in
+        self.attention_type = attention_type
+        self.cross_sampling_ratio = cross_sampling_ratio
+        self.first_lin = nn.Linear(n_in, attn_dim)
         self.n_layers = n_layers
         for li in range(n_layers):
             self.add_module(f"layer_{li}",
-                            AttentionalPropagation(gnn_dim, num_heads))
-        self.last_lin = nn.Linear(gnn_dim, n_in)
-        self.overlap = OverlapPredictorNet(n_in, overlap_feat_dim)
+                            AttentionalPropagation(attn_dim, num_heads))
+        self.last_lin = nn.Linear(attn_dim, out_dim)
+        self.overlap = OverlapPredictorNet(ov_in, overlap_feat_dim)
 
-    def forward(self, feat_x, feat_y, x_valid, y_valid):
+    def forward(self, feat_x, feat_y, x_valid, y_valid, x_samples=None):
         """feat_x (B, V1, n_in), feat_y (B, V2, n_in) -> refined feats +
-        overlaps."""
+        overlaps.
+
+        x_samples: (idf (B, S), idn (B, V1, 3), dists (B, V1, 3)), the FPS
+        subsample of the x side and each point's 3 nearest sampled points;
+        required iff cross_sampling_ratio < 1.
+        """
         desc0 = self.first_lin(feat_x)
         desc1 = self.first_lin(feat_y)
+        subsampled = self.cross_sampling_ratio < 1.0
+        if subsampled:
+            if x_samples is None:
+                raise ValueError("cross_sampling_ratio < 1 requires "
+                                 "x_samples (idf, idn, dists)")
+            idf, idn, dists = x_samples
+            s_valid = torch.gather(x_valid, 1, idf)
         for li in range(self.n_layers):
             layer = getattr(self, f"layer_{li}")
             # shared layer, sequential: desc1's update sees the updated desc0
-            desc0 = desc0 + layer(desc0, desc1, x_valid, y_valid)
-            desc1 = desc1 + layer(desc1, desc0, y_valid, x_valid)
-        ref_x = self.last_lin(desc0) * x_valid[..., None]
-        ref_y = self.last_lin(desc1) * y_valid[..., None]
-        overlap_x, overlap_y = self.overlap(ref_x, ref_y, x_valid, y_valid)
+            if subsampled:
+                s0 = torch.gather(desc0, 1, idf[..., None].expand(
+                    -1, -1, desc0.shape[-1]))
+                s0 = s0 + layer(s0, desc1, s_valid, y_valid)
+                desc1 = desc1 + layer(desc1, s0, y_valid, s_valid)
+                desc0 = nn_interpolate(s0, dists, idn) * x_valid[..., None]
+            else:
+                desc0 = desc0 + layer(desc0, desc1, x_valid, y_valid)
+                desc1 = desc1 + layer(desc1, desc0, y_valid, x_valid)
+        aug_x = self.last_lin(desc0) * x_valid[..., None]
+        aug_y = self.last_lin(desc1) * y_valid[..., None]
+        ref_x, ref_y = aug_x[..., :self.n_in], aug_y[..., :self.n_in]
+        if self.attention_type == "double":
+            ov_x, ov_y = aug_x[..., self.n_in:], aug_y[..., self.n_in:]
+        else:
+            ov_x, ov_y = ref_x, ref_y
+        overlap_x, overlap_y = self.overlap(ov_x, ov_y, x_valid, y_valid)
         return ref_x, ref_y, overlap_x, overlap_y

@@ -49,11 +49,11 @@ SOURCES = {
         "masked_consistency_sum_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _P]},
     "flash_cross_attention.cu": {
-        "flash_cross_attention_tiles": [_I, _P],
+        "flash_cross_attention_tiles": [_I, _I, _P],
         "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _F, _P]},
     "flash_cross_attention_bwd.cu": {
-        "flash_cross_attention_bwd_tiles": [_I, _I, _P],
+        "flash_cross_attention_bwd_tiles": [_I, _I, _I, _P],
         "flash_cross_attention_bwd_mma_rate": [_I, _I, _P, _P],
         "flash_cross_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _P]},
 }
@@ -63,12 +63,25 @@ LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
             "consistency_sum_rank_major": 0, "masked_consistency_sum": 0,
             "masked_topk_cdist": 0, "masked_argmin_cdist": 0}
 
+# the flash kernels' launches split by the caller's (head dim, heads):
+# {(kernel, dim, heads): launches}, counted beside LAUNCHES
+LAUNCHES_BY_INSTANCE: dict[tuple, int] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_INSTANCE.clear()
+
+
+def count_launch(name: str, instance: tuple | None = None) -> None:
+    """One launch of kernel `name` (and of its `instance`, if given)."""
+    LAUNCHES[name] += 1
+    if instance is not None:
+        key = (name, *instance)
+        LAUNCHES_BY_INSTANCE[key] = LAUNCHES_BY_INSTANCE.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -1,6 +1,7 @@
-"""Point-cloud Laplace-Beltrami operator on the host (copy of
-point_cloud_laplacian, pca_normals_and_frames and laplacian_eigenbasis
-from pose6d_tpu/spectral/laplacian.py).
+"""Laplace-Beltrami operators on the host (copy of _face_cotangents,
+cotan_laplacian, vertex_normals, point_cloud_laplacian,
+pca_normals_and_frames and laplacian_eigenbasis from
+pose6d_tpu/spectral/laplacian.py).
 
 One change: the k-nearest-neighbour query uses scipy's cKDTree instead
 of scikit-learn, which the GPU host does not carry. Both return each
@@ -12,6 +13,58 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 from scipy.spatial import cKDTree
+
+
+def _face_cotangents(verts: np.ndarray, faces: np.ndarray):
+    """Per-corner cotangents and per-face double areas."""
+    v0, v1, v2 = (verts[faces[:, k]] for k in range(3))
+    e0, e1, e2 = v2 - v1, v0 - v2, v1 - v0  # edge opposite corner k
+    # cot at corner k = dot of adjacent edges / (2 * area)
+    n = np.cross(e2, -e1)
+    dbl_area = np.linalg.norm(n, axis=1)
+    dbl_area = np.maximum(dbl_area, 1e-12)
+    cot0 = np.einsum("ij,ij->i", -e1, e2) / dbl_area
+    cot1 = np.einsum("ij,ij->i", -e2, e0) / dbl_area
+    cot2 = np.einsum("ij,ij->i", -e0, e1) / dbl_area
+    return np.stack([cot0, cot1, cot2], axis=1), dbl_area
+
+
+def cotan_laplacian(verts: np.ndarray, faces: np.ndarray):
+    """Cotangent Laplacian L (positive semidefinite) + lumped mass.
+
+    L = D - W with w_ij = (cot a_ij + cot b_ij) / 2; mass_i = 1/3 of the
+    area of the incident faces.
+    """
+    V = len(verts)
+    cots, dbl_area = _face_cotangents(verts, faces)
+    rows, cols, vals = [], [], []
+    for k, (i, j) in enumerate([(1, 2), (2, 0), (0, 1)]):
+        w = 0.5 * cots[:, k]
+        rows += [faces[:, i], faces[:, j]]
+        cols += [faces[:, j], faces[:, i]]
+        vals += [w, w]
+    W = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(V, V)).tocsr()
+    W = 0.5 * (W + W.T)
+    d = np.asarray(W.sum(axis=1)).ravel()
+    L = sp.diags(d) - W
+    mass = np.zeros(V)
+    np.add.at(mass, faces.ravel(),
+              np.repeat(dbl_area / 6.0, 3))  # dbl_area/2 * 1/3 per corner
+    mass = np.maximum(mass, 1e-10 * mass.mean() if mass.mean() > 0 else 1e-12)
+    return L.tocsr(), mass
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals."""
+    v0, v1, v2 = (verts[faces[:, k]] for k in range(3))
+    fn = np.cross(v1 - v0, v2 - v0)
+    n = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(n, faces[:, k], fn)
+    norm = np.linalg.norm(n, axis=1, keepdims=True)
+    return n / np.maximum(norm, 1e-12)
 
 
 def pca_normals_and_frames(points: np.ndarray, k: int = 30):

@@ -5,9 +5,11 @@ per-step and per-epoch scalars (metrics.jsonl), the optional train-IR
 probe, checkpoints every checkpoint_interval epochs and every
 checkpoint_every_steps steps (full resume state, .pt), the weights-only
 params_latest.msgpack export (flax msgpack), an optional pretrained
-init from a flax msgpack params file, and resume from the run
-directory's latest checkpoint. A fresh model is drawn as flax draws
-one (models.weights.init_like_flax).
+init from a flax msgpack params file (load_pretrained_params: an
+xyz-trained checkpoint warm-starts a model with appended input channels,
+any other shape mismatch raises), and resume from the run directory's
+latest checkpoint. A fresh model is drawn as flax draws one
+(models.weights.init_like_flax).
 
 The random draws of every step (augmentation, NCE subsample) come from
 one torch.Generator on the training device, seeded with cfg.train.seed;
@@ -23,7 +25,10 @@ import numpy as np
 import torch
 
 from ..data.pipeline import HostLoader, to_device
-from ..models import DPFMNet, init_like_flax, load_flax_checkpoint
+from ..models import DPFMNet, init_like_flax
+from ..models.port_weights import extend_first_lin_input
+from ..models.weights import (flax_from_state_dict, read_flax_msgpack,
+                              state_dict_from_flax)
 from ..runtime import resolve_device
 from ..solvers import naive_fmap2pointmap
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
@@ -37,12 +42,59 @@ _NO_DATASET = ("the BOP training dataset is not ported yet (ROADMAP.md, "
                "of (cad_ops, pc_ops, obj) triples")
 _NO_MESH = ("data-parallel training over several GPUs is not ported yet "
             "(ROADMAP.md, modules still to port, item 11)")
+_NO_PT = ("the reference's torch checkpoint (.pt) is not ported yet "
+          "(ROADMAP.md, modules still to port, item 11): pass a flax "
+          "msgpack params file")
 
 
 class TrainState(NamedTuple):
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
+
+
+def _prefix_input_rows(model_cfg) -> set:
+    """Row counts of every proper prefix of the model's input channels
+    (fixed order xyz -> hks -> wks): a narrower checkpoint widens
+    function-preservingly only when its first_lin rows equal one of
+    them, i.e. the new channels are appended at the end."""
+    f = model_cfg.input_features
+    sizes = ([3] * ("xyz" in f) + [model_cfg.n_hks] * ("hks" in f)
+             + [model_cfg.n_wks] * ("wks" in f))
+    return {sum(sizes[:i]) for i in range(1, len(sizes))}
+
+
+def load_pretrained_params(path: str, template: dict,
+                           model_cfg=None) -> dict:
+    """A flax msgpack params file as a {"params": tree} for a model
+    whose own tree is `template` ({"params": flax_from_state_dict(...)}).
+    When the file's first_lin has fewer input rows than the template's,
+    the same width, and a row count that is a prefix of model_cfg's
+    channel layout, its rows are zero-extended (extend_first_lin_input);
+    a narrower checkpoint that is not a prefix raises. Other mismatches
+    raise when the tree is loaded strictly."""
+    if str(path).endswith(".pt"):
+        raise NotImplementedError(_NO_PT)
+    loaded = read_flax_msgpack(path)
+    try:
+        tk = template["params"]["feature_extractor"]["first_lin"]["kernel"]
+        lk = loaded["params"]["feature_extractor"]["first_lin"]["kernel"]
+    except (KeyError, TypeError):
+        return loaded
+    if lk.shape[0] < tk.shape[0] and lk.shape[1] == tk.shape[1]:
+        allowed = (_prefix_input_rows(model_cfg) if model_cfg is not None
+                   else {lk.shape[0]})
+        if lk.shape[0] not in allowed:
+            raise ValueError(
+                f"pretrained checkpoint has {lk.shape[0]} input rows; "
+                f"model expects {tk.shape[0]} and {lk.shape[0]} is not a "
+                f"prefix of its channel layout "
+                f"({getattr(model_cfg, 'input_features', None)!r}): "
+                "refusing to widen")
+        loaded = extend_first_lin_input(loaded, tk.shape[0] - lk.shape[0])
+        print(f"pretrained: widened first_lin input {lk.shape[0]} -> "
+              f"{tk.shape[0]} rows (appended channels zero-initialized)")
+    return loaded
 
 
 def resume_offsets(restored_step: int, steps_per_epoch: int, seed: int,
@@ -79,7 +131,10 @@ def train(cfg, dataset=None, max_steps: int | None = None,
     model = init_like_flax(DPFMNet(cfg.model),
                            torch.Generator().manual_seed(tcfg.seed))
     if tcfg.pretrained and str(tcfg.pretrained).lower() != "none":
-        load_flax_checkpoint(tcfg.pretrained, model)
+        template = {"params": flax_from_state_dict(model.state_dict())}
+        loaded = load_pretrained_params(tcfg.pretrained, template, cfg.model)
+        model.load_state_dict(state_dict_from_flax(loaded["params"]),
+                              strict=True)
     model.to(dev)
     step_fn = TrainStep(
         model, cfg.loss, lr=tcfg.lr, decay_factor=tcfg.decay_factor,
