@@ -20,8 +20,12 @@ ones): evaluate() at the reference's settings and with TTA + ZoomOut,
 run_pose_stage (RANSAC with disambiguation, GNC) on its result files and
 the pose CLI, each repeated on the card (bit for bit) and held against
 the port's CPU run on the instances and inputs whose answer is
-determined; then ZoomOut on a well-conditioned pair and one
-Predictor.predict with TTA + ZoomOut candidates, card against CPU.
+determined. Then the README's command-line workflow (cli_workflow):
+gen_shapes -> synth_data -> generate_cache -> train -> eval -> pose ->
+ir_extraction on two random_shape objects at lm_synth.yaml's width,
+the cache held against the CPU. Then ZoomOut on a well-conditioned pair
+and one Predictor.predict with TTA + ZoomOut candidates, card against
+CPU.
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
@@ -70,6 +74,10 @@ PATH_KERNELS = {
     "variants": ("flash_cross_attention", "flash_cross_attention_backward"),
     "variant_serve": ("flash_cross_attention", "consistency_sum_rank_major",
                       "masked_topk_cdist", "masked_argmin_cdist"),
+    # cli_workflow: the in-process train, eval and pose CLI runs
+    "cli": ("flash_cross_attention", "flash_cross_attention_backward",
+            "consistency_sum_rank_major", "masked_topk_cdist",
+            "masked_argmin_cdist"),
 }
 
 
@@ -442,10 +450,15 @@ def check_rank_major(dev, g) -> dict:
 
         def kern():
             return K.consistency_sum_rank_major(cad, dpc, w, 2048)
+
+        def library():      # as row 5's: cdist, the PC table tiled 5 x 5
+            da = torch.cdist(cad, cad)
+            return torch.einsum("bi,bij->bj", w,
+                                (da - dpc.repeat(1, 5, 5)).abs_())
         return dict(res, ms=graph_ms(kern), call_ms=cuda_ms(kern, 10),
                     plain_ms=cuda_ms(lambda: K.consistency_sum_rank_major_plain(
                         cad, dpc, w, 2048), 2),
-                    bound_ms=b_ms, bound_by=by, library_ms=None)
+                    bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 2))
 
     c16, c1 = timed(BATCH), timed(1)
     cases = {}
@@ -2977,6 +2990,337 @@ def cli_pose(results_dir, avg: str) -> None:
                              "in-process run's")
 
 
+# the README's workflow (cli_workflow): two random_shape objects, four
+# frames each, lm_synth.yaml's model at full width
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_CONFIG = str(ROOT / "config" / "lm_synth.yaml")
+CLI_NAMES = ("synth_obj1", "synth_obj2")
+CLI_STEPS = 8
+# result arrays copied from the sample (the cache), equal on both devices
+SAMPLE_KEYS = ("K", "R_m2c", "align_pc", "cad_xyz", "diam_cad", "evecs_cad",
+               "evecs_pc", "im_hw", "obj_id", "pcd_depth", "t_m2c")
+
+
+def cli_overrides(cache: str, results: str = "results") -> list:
+    return [f"data_root={CLI_DIR / 'data'}", f"cache_dir={CLI_DIR / cache}",
+            f"logging_dir={CLI_DIR / 'logs'}",
+            f"save_results={CLI_DIR / results}",
+            "train_datasets=[" + ", ".join(
+                f"{{render_data_name: {n}}}" for n in CLI_NAMES) + "]",
+            f"train.batch_size={TRAIN_BATCH}", f"train.max_steps={CLI_STEPS}",
+            "train.log_interval=1"]
+
+
+def gpu_memory_used_mib() -> int:
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+
+
+def run_module(name: str, *args, memory: dict | None = None) -> tuple:
+    """python -m pose6d_tpu_torch.cli.<name> as a subprocess (the entry
+    point itself); returns (seconds, stdout). With `memory`, the card's
+    used memory (nvidia-smi, MiB) before the call and its peak during it,
+    sampled every 0.5 s."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        if memory is not None:
+            memory["before_mib"] = memory["peak_mib"] = gpu_memory_used_mib()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"pose6d_tpu_torch.cli.{name}",
+             *map(str, args)], cwd=ROOT, stdout=out, stderr=err, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"cli.{name} took over 600 s")
+                if memory is not None:
+                    memory["peak_mib"] = max(memory["peak_mib"],
+                                             gpu_memory_used_mib())
+                time.sleep(0.5)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.{name} failed ({proc.returncode}):\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    return time.perf_counter() - t0, stdout
+
+
+def timed_call(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def npz(path) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def cache_agreement(serial, workers) -> dict:
+    """The card's cache (the serial build) against the same samples built
+    afresh on the CPU and on the card (the cloud: backprojection, outlier
+    removal, FPS; the GT pairs and overlaps), every obj array exactly;
+    against the cache the parallel workers built on the card (obj files
+    exactly, the PC operators' eigenvalues within 1e-3 relative: ARPACK
+    starts at random); the shared CAD cache and the card's cache read on
+    the CPU equal to the card's reads. Times each fresh sample (PNG
+    decoding included; the CAD operators come from the shared cache)."""
+    import shutil
+
+    from pose6d_tpu_torch.data.dataset import BOPObjectDataset
+    data = CLI_DIR / "data"
+    fresh_dirs = {d: CLI_DIR / f"cache_fresh_{d}" for d in ("cuda", "cpu")}
+    for d in fresh_dirs.values():
+        shutil.copytree(serial / "shared_cad", d / "shared_cad")
+    rows, failed, build_ms = [], [], {d: [] for d in fresh_dirs}
+    for name in CLI_NAMES:
+        card = BOPObjectDataset(data, name, cache_dir=serial, device="cuda")
+        shared = BOPObjectDataset(data, name, cache_dir=serial, device="cpu")
+        fresh = {d: BOPObjectDataset(data, name, cache_dir=c, lbo_pc=False,
+                                     device=d)
+                 for d, c in fresh_dirs.items()}
+        for k, (i, j) in enumerate(card.mapping_list):
+            got = card[k]
+            if any(bits_differ(a, b) for a, b in zip(got, shared[k])):
+                failed.append(f"{name} {k}: the CPU reads the cache "
+                              "differently")
+            row = {"dataset": name, "sample": k,
+                   "pc_points": len(got[2]["pcd_depth"]),
+                   "gt_pairs": len(got[2]["P"])}
+            for d, ds in fresh.items():
+                s, (cad, _, _) = timed_call(ds.__getitem__, k)
+                build_ms[d].append(1e3 * s)
+                obj = npz(fresh_dirs[d] / name / "train_pbr"
+                          / f"{i}_{j}_obj.npz")
+                row[f"fresh_{d}_differs"] = bits_differ(got[2], obj) + [
+                    f"cad.{x}" for x in bits_differ(got[0], cad)]
+            par = workers / name / "train_pbr"
+            row["workers_obj_differs"] = bits_differ(
+                got[2], npz(par / f"{i}_{j}_obj.npz"))
+            ev = npz(par / f"{i}_{j}_pc_LBO.npz")["evals"]
+            row["workers_pc_evals_max_rel_err"] = float(np.max(
+                np.abs(ev - got[1]["evals"])
+                / np.maximum(np.abs(got[1]["evals"]), 1e-6)))
+            rows.append(row)
+            if any(row[f"fresh_{d}_differs"] for d in fresh) \
+                    or row["workers_obj_differs"] \
+                    or row["workers_pc_evals_max_rel_err"] > 1e-3:
+                failed.append(f"{name} {k}")
+    return {"rows": rows, "failed": failed,
+            "fresh_sample_ms": build_ms}
+
+
+def cli_workflow(gpu_line: str) -> dict:
+    """The README's workflow through the port's CLIs on the card, at
+    lm_synth.yaml's full width: gen_shapes (a subprocess) -> synth_data
+    (2 objects x 4 frames, 640 x 480) -> generate_cache on cuda (in this
+    process with --serial, and as a subprocess with its default workers:
+    N CUDA contexts on the card) -> train (8 steps at B = 8) -> eval
+    --save-results on both sets -> pose ransac (in this process on the
+    first set, as a subprocess on the second) -> ir_extraction (a
+    subprocess). Launches are counted over the in-process train, eval
+    and pose runs, each from 0 (PATH_KERNELS["cli"]).
+
+    Held: the cache against the CPU (cache_agreement); the losses finite
+    and falling (mean of the first 3 over the last 3) and
+    params_latest.msgpack reloading bit for bit; eval against the port's
+    CPU run of the same CLI: the npz layout and the arrays copied from
+    the sample on every instance, the IR within 0.01 where the map is
+    determined by the eval phase's weak-base rule (the CPU's
+    spatial-filter survivors at least select_trigger = 0.25 of the PC
+    points; a model 8 steps from its init may leave none, and the rest
+    are printed); the
+    pose stage against the CPU on the first set's files with GT-derived
+    pairs (pose_agreement); ir_extraction's means equal to the eval's
+    IRs."""
+    import shutil
+
+    from pose6d_tpu_torch.cli import (eval as cli_eval, generate_cache,
+                                      ir_extraction, pose, synth_data,
+                                      train as cli_train)
+    from pose6d_tpu_torch.models import DPFMNet, load_flax_checkpoint
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    secs, launches = {}, {}
+    secs["gen_shapes"], _ = run_module("gen_shapes", CLI_DIR / "models",
+                                       "--count", 2, "--seed", 7)
+    secs["synth_data"], _ = timed_call(synth_data.main, [
+        str(CLI_DIR / "data"), "--models", str(CLI_DIR / "models"),
+        "--objects", "1", "2", "--frames", "4", "--seed", "7"])
+    cfg = ["--config", CLI_CONFIG]
+    secs["generate_cache_serial"], rc = timed_call(generate_cache.main, [
+        *cfg, "--device", "cuda", "--serial", *cli_overrides("cache")])
+    if rc:
+        raise AssertionError("generate_cache --serial: samples failed")
+    torch.cuda.empty_cache()     # room for the workers' contexts
+    memory = {}
+    secs["generate_cache_workers"], out = run_module(
+        "generate_cache", *cfg, "--device", "cuda",
+        *cli_overrides("cache_workers"), memory=memory)
+    workers = int(out.split(" workers on ")[0].rsplit(" ", 1)[1])
+    agree = cache_agreement(CLI_DIR / "cache", CLI_DIR / "cache_workers")
+    n_samples = len(agree["rows"])
+    emit("cli_cache", gpu=gpu_line, samples=n_samples,
+         s_per_sample={"serial_cuda": secs["generate_cache_serial"]
+                       / n_samples,
+                       f"{workers}_workers_cuda":
+                       secs["generate_cache_workers"] / n_samples},
+         fresh_sample_ms=agree["fresh_sample_ms"],
+         workers=workers, workers_gpu_memory=memory,
+         card_vs_cpu=agree["rows"],
+         note="s per sample: wall of the whole build over its samples "
+              "(the workers' run includes spawning them and their CUDA "
+              "set-up; the CAD operators are built once per object, by "
+              "every worker that needs one before it is cached)",
+         tol="points, GT pairs, overlaps and the workers' obj files exact; "
+             "the workers' PC eigenvalues 1e-3 relative")
+    if agree["failed"]:
+        raise AssertionError(f"cli cache: card and CPU disagree on "
+                             f"{agree['failed']}")
+
+    reset_launches()
+    secs["train"], state = timed_call(cli_train.main, [
+        *cfg, "--device", "cuda", *cli_overrides("cache")])
+    launches["train"] = dict(LAUNCHES)
+    (run,) = (CLI_DIR / "logs").iterdir()
+    losses = [r["loss"] for r in map(json.loads, (run / "metrics.jsonl")
+                                     .read_text().splitlines())
+              if "step" in r]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) \
+            or not last < first:
+        raise AssertionError(f"cli train losses {losses}")
+    weights = run / "params_latest.msgpack"
+    back = load_flax_checkpoint(weights, DPFMNet())
+    for name, t in state.model.state_dict().items():
+        if not torch.equal(back.state_dict()[name], t.cpu()):
+            raise AssertionError(f"params_latest.msgpack differs at {name}")
+
+    ev = [*cfg, "--weights", str(weights), "--save-results", "--eval-names",
+          *CLI_NAMES]
+    reset_launches()
+    secs["eval"], card = timed_call(cli_eval.main, [
+        *ev, "--device", "cuda", *cli_overrides("cache")])
+    launches["eval"] = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = cli_eval.main([*ev, "--device", "cpu",
+                         *cli_overrides("cache", "results_cpu")])
+    secs["eval_cpu"] = time.perf_counter() - t0
+    rows, failed = [], []
+    for name in CLI_NAMES:
+        for f in sorted((CLI_DIR / "results" / name).glob("result_*.npz")):
+            a, b = npz(f), npz(CLI_DIR / "results_cpu" / name / f.name)
+            if tuple(sorted(a)) != NPZ_KEYS or sorted(b) != sorted(a):
+                raise AssertionError(f"cli eval {f}: keys {sorted(a)}")
+            differ = [k for k in SAMPLE_KEYS if bits_differ(
+                {k: a[k]}, {k: b[k]})]
+            row = {"set": name, "file": f.name, "ir": [float(a["ir"]),
+                                                       float(b["ir"])],
+                   "survivors": [len(a["p_pred"]), len(b["p_pred"])],
+                   "held": len(b["p_pred"]) >= SERVE_TRIGGER * len(
+                       b["pcd_depth"]),
+                   "p_pred_equal": bool(np.array_equal(a["p_pred"],
+                                                       b["p_pred"])),
+                   "sample_arrays_differ": differ}
+            rows.append(row)
+            if differ or (row["held"]
+                          and abs(row["ir"][0] - row["ir"][1]) > 0.01):
+                failed.append(f"{name}/{f.name}")
+    n_inst = len(rows)
+    if failed:
+        raise AssertionError(f"cli eval: card and CPU disagree on {failed}")
+
+    res = CLI_DIR / "results"
+    reset_launches()
+    secs["pose"], _ = timed_call(pose.main, [
+        "ransac", str(res / CLI_NAMES[0]), str(CLI_DIR / "poses" / "set0"),
+        "--device", "cuda"])
+    launches["pose"] = dict(LAUNCHES)
+    n_pose = len(list((res / CLI_NAMES[0]).glob("result_*.npz")))
+    secs["pose_subprocess"], _ = run_module(
+        "pose", "ransac", res / CLI_NAMES[1], CLI_DIR / "poses" / "set1",
+        "--device", "cuda")
+    gt_dir = CLI_DIR / "gt_pairs"
+    n_pairs = gt_results(res / CLI_NAMES[0], gt_dir, 0.05)
+    sides = {d: run_pose(gt_dir, CLI_DIR / f"pose_gt_{d}", "ransac", d,
+                         write_ply=False) for d in ("cuda", "cpu")}
+    pose_rows, pose_failed = [], []
+    for a, b in zip(sides["cuda"]["chunks"], sides["cpu"]["chunks"]):
+        for j, i in enumerate(a["i"]):
+            r = eval_results(gt_dir, i)
+            reach = float(np.linalg.norm(
+                r["cad_xyz"] @ r["R_m2c"].T + r["t_m2c"], axis=1).max())
+            row = {"instance": i, "gt_pairs": n_pairs[i],
+                   **pose_agreement(a, b, j, float(r["diam_cad"]), reach)}
+            pose_rows.append(row)
+            if not pose_ok(row):
+                pose_failed.append(i)
+    if pose_failed:
+        raise AssertionError(f"cli pose: card and CPU disagree on "
+                             f"{pose_failed} (GT-derived pairs)")
+    ir_rows = {}
+    for k, name in enumerate(CLI_NAMES):
+        txt = CLI_DIR / "poses" / f"set{k}" / "results_poses_RANSAC" / \
+            "results"
+        s, out = run_module("ir_extraction", txt)
+        secs[f"ir_extraction_{k}"] = s
+        per_obj = ir_extraction.main([str(txt)])
+        # the pose stage writes no txt for an instance without pairs (as
+        # the reference does), so those leave the mean
+        results = [npz(f) for f in sorted((res / name).glob("result_*.npz"))]
+        irs = [float(r["ir"]) for r in results if len(r["p_pred"])]
+        ir_rows[name] = {"means": {o: float(np.mean(v))
+                                   for o, v in per_obj.items()},
+                         "eval_irs_with_pairs": irs,
+                         "instances_without_pairs": len(results) - len(irs),
+                         "printed": out.strip().splitlines()[0]}
+        if [sorted(v) for v in per_obj.values()] != [sorted(irs)]:
+            raise AssertionError(f"ir_extraction {name}: {per_obj} vs {irs}")
+
+    counts = {k: sum(c[k] for c in launches.values()) for k in LAUNCHES}
+    missing = [n for n in PATH_KERNELS["cli"] if not counts[n]]
+    if missing:
+        raise AssertionError(f"cli: not launched: {missing} ({launches})")
+    emit("cli_workflow", gpu=gpu_line, seconds=secs,
+         phase_s=time.perf_counter() - t_phase, samples=n_samples,
+         train_losses=losses, train_mean_first3=first, train_mean_last3=last,
+         train_ms_per_step=1e3 * secs["train"] / CLI_STEPS,
+         eval_ms_per_instance=1e3 * secs["eval"] / n_inst,
+         pose_ms_per_instance=1e3 * secs["pose"] / n_pose,
+         eval_card_vs_cpu=rows, eval_mean_ir=[c[0] for c in card],
+         eval_mean_ir_cpu=[c[0] for c in cpu],
+         pose_gt_pairs_card_vs_cpu=pose_rows,
+         pose_gt_pairs_ms_per_instance={
+             d: v["ms"] / max(v["n"], 1) for d, v in sides.items()},
+         ir_extraction=ir_rows,
+         launches_per_train_step={k: v / CLI_STEPS for k, v in
+                                  launches["train"].items()},
+         launches_per_eval_instance={k: v / n_inst for k, v in
+                                     launches["eval"].items()},
+         launches_per_pose_instance={k: v / n_pose for k, v in
+                                     launches["pose"].items()},
+         timing="host clock around each CLI call, device synchronised at "
+                "its ends; subprocesses include their start-up",
+         tol="eval: layout and sample arrays exact everywhere, IR 0.01 "
+             "where held (CPU survivors >= 0.25 x PC points); pose on "
+             "GT-derived pairs as pose_stage; ir_extraction equal")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3041,6 +3385,7 @@ def main() -> int:
     results_dir, paths["eval"] = eval_phase(eval_items, model, gpu_line)
     paths["pose_stage"], avg = pose_stage_runs(results_dir, gpu_line)
     cli_pose(results_dir, avg)
+    paths["cli"] = cli_workflow(gpu_line)
     zoomout_check(frames, dev, gpu_line)
     zoomout_sensitivity(eval_items, gpu_line)
     predictor_candidates(online, model, gpu_line)

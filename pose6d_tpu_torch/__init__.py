@@ -5,8 +5,11 @@ imports nothing of it (nor of JAX). Its entry points run on ``cuda``
 unless the caller passes ``device="cpu"``: ``api.Predictor.predict``
 (the online mode: depth frame -> on-device cloud and spectral operators
 -> DPFMNet -> filter -> RANSAC -> ICP -> flip disambiguation),
-``api.Predictor.predict_with_operators`` (the cached mode) and
-``train.loop.train``. The hot steps of the main path run in hand-written
-CUDA C++ kernels (``csrc/``), built at first use; on CPU tensors each
-kernel's plain PyTorch version runs instead.
+``api.Predictor.predict_with_operators`` (the cached mode),
+``train.loop.train``, ``train.eval_loop.evaluate`` and the command-line
+workflow (``python -m pose6d_tpu_torch.cli.<name>``: gen_shapes,
+synth_data, generate_cache, train, eval, pose, ir_extraction). The hot
+steps of the main path run in hand-written CUDA C++ kernels
+(``csrc/``), built at first use; on CPU tensors each kernel's plain
+PyTorch version runs instead.
 """

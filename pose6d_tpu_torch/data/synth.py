@@ -1,9 +1,16 @@
-"""Depth rendering of a mesh at a known pose: z-buffer rasterizer, LM
-intrinsics and sensor-style degradation (a copy of rasterize_depth,
-default_intrinsics and degrade_depth from pose6d_tpu/data/synth.py,
-which use numpy only).
+"""Depth rendering of a mesh at a known pose and the BOP scene writer
+(a copy of pose6d_tpu/data/synth.py: z-buffer rasterizer, LM
+intrinsics, sensor-style degradation, box occluders, write_bop_scene).
+
+The one change: the scene writer writes PNGs through data/png.py, and
+its black colour frames as rgb/<frame>.png where the JAX package writes
+rgb/<frame>.jpg (the port has no JPEG codec; BOPSceneDataset reads
+either name).
 """
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -156,3 +163,102 @@ def degrade_depth(depth, rng, noise_mm=0.0, hole_frac=0.0):
             d[hit] = 0.0
     np.clip(d, 0.0, None, out=d)
     return d
+
+
+def _box_mesh(size_mm):
+    """Axis-aligned box occluder mesh (12 triangles)."""
+    s = np.asarray(size_mm, float) / 2.0
+    v = np.array([[x, y, z] for x in (-s[0], s[0])
+                  for y in (-s[1], s[1]) for z in (-s[2], s[2])])
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                  [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                  [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    return v, f
+
+
+def sample_occluder(rng, t_mm, diameter_mm):
+    """Random box occluder in front of / beside the target object.
+
+    Placed between camera and object (z offset -0.2..-0.6 diameters) with
+    a lateral offset that clips the silhouette edge, the regime of the
+    reference's train_pbr frames (visib_fract often < 1).
+    """
+    size = rng.uniform(0.25, 0.7, 3) * diameter_mm
+    dz = rng.uniform(0.2, 0.6) * diameter_mm
+    z_t = float(np.asarray(t_mm, float)[2])
+    # lateral offset expressed at the OBJECT's depth plane, then scaled
+    # by the z ratio so the projected occluder really clips the
+    # silhouette (a nearer occluder projects its offset magnified)
+    ratio = max(z_t - dz, 1.0) / max(z_t, 1.0)
+    off = np.array([
+        rng.uniform(0.15, 0.55) * diameter_mm * rng.choice([-1, 1]) * ratio,
+        rng.uniform(-0.35, 0.35) * diameter_mm * ratio,
+        -dz])
+    ang = rng.uniform(0, np.pi)
+    ca, sa = np.cos(ang), np.sin(ang)
+    Rz = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1.0]])
+    return Rz, np.asarray(t_mm, float) + off, size
+
+
+def write_bop_scene(root: Path, name: str, mesh: dict, obj_id: int, poses,
+                    diameter_mm: float, mode="train_pbr",
+                    occlude_prob: float = 0.0, depth_noise_mm: float = 0.0,
+                    hole_frac: float = 0.0, seed: int = 0):
+    """Write a BOP tree with one frame per (R, t_mm) pose in `poses`.
+
+    With occlude_prob / depth_noise_mm / hole_frac the frames carry the
+    structure of the reference's train_pbr data: box occluders in front
+    of the object (visib_fract < 1, computed exactly from the amodal and
+    occluded z-buffers), Gaussian depth noise, and dropout holes.
+    """
+    from .ply import write_ply_mesh
+    from .png import write_png
+    root = Path(root)
+    ds = root / name
+    scene = ds / mode / "000000"
+    for sub in ("depth", "mask_visib", "rgb"):
+        (scene / sub).mkdir(parents=True, exist_ok=True)
+    models = ds / "models"
+    models.mkdir(parents=True, exist_ok=True)
+    write_ply_mesh(models / f"obj_{obj_id:06d}.ply",
+                   mesh["verts"], mesh["faces"])
+    (models / "models_info.json").write_text(
+        json.dumps({str(obj_id): {"diameter": diameter_mm}}))
+
+    rng = np.random.default_rng(seed)
+    cams, gts, infos = {}, {}, {}
+    for fr, (R, t_mm) in enumerate(poses):
+        depth = rasterize_depth(mesh["verts"], mesh["faces"], R, t_mm)
+        amodal = depth > 0
+        scene_depth = depth
+        if occlude_prob > 0 and rng.uniform() < occlude_prob:
+            Ro, to, size = sample_occluder(rng, t_mm, diameter_mm)
+            bv, bf = _box_mesh(size)
+            occ = rasterize_depth(bv, bf, Ro, to)
+            occ[occ == 0] = np.inf
+            scene_depth = np.minimum(
+                np.where(amodal, depth, np.inf), occ)
+            scene_depth[~np.isfinite(scene_depth)] = 0
+        visible = amodal & (scene_depth > 0) & (scene_depth >= depth - 1e-6)
+        visib_fract = (float(visible.sum()) / float(amodal.sum())
+                       if amodal.any() else 0.0)
+        if depth_noise_mm > 0 or hole_frac > 0:
+            scene_depth = degrade_depth(scene_depth, rng,
+                                        noise_mm=depth_noise_mm,
+                                        hole_frac=hole_frac)
+        mask = visible.astype(np.uint8) * 255
+        d16 = np.clip(scene_depth, 0, 65535).astype(np.uint16)
+        write_png(scene / "depth" / f"{fr:06d}.png", d16)
+        write_png(scene / "mask_visib" / f"{fr:06d}_000000.png", mask)
+        write_png(scene / "rgb" / f"{fr:06d}.png",
+                  np.zeros((H, W, 3), np.uint8))
+        cams[str(fr)] = {"cam_K": [FX, 0, CX, 0, FY, CY, 0, 0, 1],
+                         "depth_scale": 1.0}
+        gts[str(fr)] = [{"obj_id": obj_id,
+                         "cam_R_m2c": np.asarray(R).ravel().tolist(),
+                         "cam_t_m2c": np.asarray(t_mm).tolist()}]
+        infos[str(fr)] = [{"visib_fract": visib_fract}]
+    (scene / "scene_camera.json").write_text(json.dumps(cams))
+    (scene / "scene_gt.json").write_text(json.dumps(gts))
+    (scene / "scene_gt_info.json").write_text(json.dumps(infos))
+    return ds

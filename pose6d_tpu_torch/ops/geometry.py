@@ -60,9 +60,10 @@ def pairwise_sqdist_fma(a, b):
 def radius_correspondence_mask(cad, cad_valid, pc, pc_valid, radius):
     """Dense boolean GT-correspondence mask (..., V1, V2): valid pairs
     within `radius` (compared as d2 <= radius^2 in f32, as the JAX
-    function does)."""
+    function does, on the distances of its jitted expansion: the same
+    pairs on every device)."""
     r = torch.as_tensor(radius, dtype=torch.float32, device=cad.device)
-    d2 = pairwise_sqdist(cad, pc)
+    d2 = pairwise_sqdist_fma(cad, pc)
     ok = cad_valid[..., :, None] & pc_valid[..., None, :]
     return ok & (d2 <= r * r)
 

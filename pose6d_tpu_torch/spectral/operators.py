@@ -3,13 +3,13 @@ _build_gradients, gradients_to_gather, mesh_operators and
 point_cloud_operators from pose6d_tpu/spectral/operators.py).
 
 The JAX package returns a ShapeOperators dataclass; the port returns a
-dict. point_cloud_operators gives {xyz, mass, evals, evecs}, and with
-build_gradients also the sparse tangent-gradient operators gradX / gradY
-and their gather form grad_idx / grad_cx / grad_cy (gradients_to_gather,
-what the gradient-feature model reads; the JAX package's dataset builds
-it the same way). mesh_operators gives ShapeOperators' fields: xyz,
-frames, mass, L, evals, evecs, faces, normals, and the same gradient
-keys with build_gradients.
+dict. point_cloud_operators gives {xyz, frames, mass, evals, evecs},
+and with build_gradients also the sparse tangent-gradient operators
+gradX / gradY and their gather form grad_idx / grad_cx / grad_cy
+(gradients_to_gather, what the gradient-feature model reads; the JAX
+package's dataset builds it the same way). mesh_operators gives
+ShapeOperators' fields: xyz, frames, mass, L, evals, evecs, faces,
+normals, and the same gradient keys with build_gradients.
 
 One change: the point cloud's neighbour query for the gradients uses
 scipy's cKDTree instead of scikit-learn, which the GPU host does not
@@ -129,12 +129,14 @@ def mesh_operators(verts: np.ndarray, faces: np.ndarray, k_eig: int = 64,
 def point_cloud_operators(points: np.ndarray, k_eig: int = 64,
                           k_nn: int = 30,
                           build_gradients: bool = False) -> dict:
-    """{xyz (V, 3), mass (V,), evals (k_eig,), evecs (V, k_eig)}, f32,
-    and with build_gradients the gradient keys (module docstring)."""
+    """{xyz (V, 3), frames (V, 3, 3), mass (V,), evals (k_eig,), evecs
+    (V, k_eig)}, f32, and with build_gradients the gradient keys (module
+    docstring)."""
     points = np.asarray(points, np.float64)
     L, mass, _, frames = lap.point_cloud_laplacian(points, k=k_nn)
     evals, evecs = lap.laplacian_eigenbasis(L, mass, k_eig)
     out = {"xyz": points.astype(np.float32),
+           "frames": frames.astype(np.float32),
            "mass": mass.astype(np.float32), "evals": evals, "evecs": evecs}
     if build_gradients:
         k = min(k_nn, len(points))

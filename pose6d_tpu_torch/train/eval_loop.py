@@ -9,9 +9,9 @@ reads. Optional eval-time candidates (ZoomOut, rotation TTA) compete per
 sample by depth-render consistency (or spatial-filter survivors).
 
 The dataset is any sequence of (cad_ops, pc_ops, obj) triples (the
-training contract, data/dataset.py); the BOP dataset is not ported. One
-process evaluates every frame: the JAX package's multi-host frame
-sharding is not ported.
+training contract, data/dataset.py), by default the BOP dataset of
+cfg.eval_dataset (build_eval_dataset). One process evaluates every
+frame: the JAX package's multi-host frame sharding is not ported.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.dataset import dataset_from_config
 from ..data.pipeline import HostLoader, to_device
 from ..models import DPFMNet, load_flax_checkpoint
 from ..runtime import resolve_device
@@ -30,18 +31,15 @@ from ..solvers.ransac import ransac_pose
 from ..solvers.verify_pose import depth_consistency_score
 from .metrics import inlier_ratio
 
-_NO_DATASET = ("the BOP evaluation dataset is not ported yet (ROADMAP.md, "
-               "modules still to port, item 8: its PNG decoding needs PIL, "
-               "which the GPU host lacks): pass dataset=, a sequence of "
-               "(cad_ops, pc_ops, obj) triples")
 SELECT_SEED = 7       # the candidate scorer's draws: seeded by (7, index)
 SCORE_HYP_BLOCK = 1024
 MAX_OBJ = 256         # per-object accumulator size
 OUT_KEYS = ("C", "overlap12", "overlap21")   # model outputs kept per sample
 
 
-def build_eval_dataset(cfg):
-    raise NotImplementedError(_NO_DATASET)
+def build_eval_dataset(cfg, device="cuda"):
+    """The BOP dataset of cfg.eval_dataset, preprocessing on `device`."""
+    return dataset_from_config(cfg, cfg.eval_dataset, device)
 
 
 def make_eval_fns(model, use_spatial: bool):
@@ -177,7 +175,8 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
 
     model_or_params: a DPFMNet with its weights, or the path of a flax
     msgpack params file. dataset: a sequence of (cad_ops, pc_ops, obj)
-    triples, padded to cfg.pad_v_cad / cfg.pad_v_pc.
+    triples, padded to cfg.pad_v_cad / cfg.pad_v_pc, or None for
+    build_eval_dataset(cfg) on `device`.
     select_draws(idx, bsz, hyps), optional: the candidate scorer's RANSAC
     draws (B, n_blocks, 1024, 3) for the batch starting at sample idx,
     in place of select_uniforms. selection, optional: a list that
@@ -185,9 +184,9 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
     map), "scores": each candidate's handicapped score, lower wins, or
     None without candidates}.
     """
-    if dataset is None:
-        dataset = build_eval_dataset(cfg)
     dev = resolve_device(device)
+    if dataset is None:
+        dataset = build_eval_dataset(cfg, device=dev)
     loader = HostLoader(dataset, cfg.eval.batch_size, shuffle=False,
                         drop_last=False, v_cad=cfg.pad_v_cad,
                         v_pc=cfg.pad_v_pc)

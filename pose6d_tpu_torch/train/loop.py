@@ -16,6 +16,9 @@ one torch.Generator on the training device, seeded with cfg.train.seed;
 a resumed run reseeds it from (seed, restored step) and advances the
 loader's epoch, so a chain of capped runs samples like one run (the
 JAX package's resume_offsets; the semantics, not the bits).
+
+Without a dataset, train() builds the BOP dataset of cfg.train_datasets
+(build_train_dataset; its preprocessing runs on the training device).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..data.dataset import dataset_from_config
 from ..data.pipeline import HostLoader, to_device
 from ..models import DPFMNet, init_like_flax
 from ..models.port_weights import extend_first_lin_input
@@ -37,14 +41,36 @@ from .logging import MetricsLogger
 from .metrics import inlier_ratio
 from .train_step import TrainStep
 
-_NO_DATASET = ("the BOP training dataset is not ported yet (ROADMAP.md, "
-               "modules still to port, item 11): pass dataset=, a sequence "
-               "of (cad_ops, pc_ops, obj) triples")
 _NO_MESH = ("data-parallel training over several GPUs is not ported yet "
             "(ROADMAP.md, modules still to port, item 11)")
 _NO_PT = ("the reference's torch checkpoint (.pt) is not ported yet "
           "(ROADMAP.md, modules still to port, item 11): pass a flax "
           "msgpack params file")
+
+
+class ConcatDataset:
+    """Several datasets as one (the reference's utils/utils.py)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self._offsets, idx, side="right") - 1)
+        return self.datasets[d][idx - int(self._offsets[d])]
+
+
+def build_train_dataset(cfg, device="cuda"):
+    """The BOP dataset of cfg.train_datasets (one block: that dataset;
+    several: their concatenation), preprocessing on `device`."""
+    if not cfg.train_datasets:
+        raise ValueError("cfg.train_datasets is empty: no dataset to train "
+                         "on")
+    ds = [dataset_from_config(cfg, d, device) for d in cfg.train_datasets]
+    return ds[0] if len(ds) == 1 else ConcatDataset(ds)
 
 
 class TrainState(NamedTuple):
@@ -112,13 +138,14 @@ def train(cfg, dataset=None, max_steps: int | None = None,
           sample_kw: dict | None = None, device="cuda",
           n_devices: int = 1) -> TrainState:
     """Run training per config on one device; returns the final
-    TrainState. sample_kw forwards to data.pipeline.make_sample (e.g.
-    smaller v_cad / v_pc padding)."""
+    TrainState. dataset: a sequence of (cad_ops, pc_ops, obj) triples,
+    or None for build_train_dataset(cfg) on `device`. sample_kw forwards
+    to data.pipeline.make_sample (e.g. smaller v_cad / v_pc padding)."""
     if n_devices != 1:
         raise NotImplementedError(_NO_MESH)
-    if dataset is None:
-        raise NotImplementedError(_NO_DATASET)
     dev = resolve_device(device)
+    if dataset is None:
+        dataset = build_train_dataset(cfg, device=dev)
     tcfg = cfg.train
     if max_steps is None:
         max_steps = tcfg.max_steps

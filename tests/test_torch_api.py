@@ -89,7 +89,7 @@ def test_package_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'pose6d_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pose6d_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'pose6d_tpu', 'PIL', 'yaml')]\n"
         "assert not bad, bad\n"
         "online = ['ops.sampling', 'ops.symmetry', 'spectral.lobpcg',\n"
         "          'spectral.device_lbo', 'solvers.verify_pose',\n"
@@ -103,12 +103,12 @@ def test_package_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 49    # every submodule imported
+    assert int(res.stdout.split()[-1]) >= 62    # every submodule imported
 
 
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
-    for name in ("jax", "flax", "pose6d_tpu."):
+    for name in ("jax", "flax", "pose6d_tpu.", "PIL", "yaml"):
         assert f"import {name}" not in src and f"from {name}" not in src
 
 

@@ -132,9 +132,9 @@ def test_point_cloud_gradients_match_sklearn():
                                atol=1e-6 * np.abs(gx).max())
     np.testing.assert_allclose(got["grad_cy"], gy, rtol=0,
                                atol=1e-6 * np.abs(gy).max())
-    # without gradients the dict keeps its four keys
+    # without gradients the dict keeps the five keys the dataset caches
     plain = ops.point_cloud_operators(pts, k_eig=16)
-    assert sorted(plain) == ["evals", "evecs", "mass", "xyz"]
+    assert sorted(plain) == ["evals", "evecs", "frames", "mass", "xyz"]
 
 
 def test_make_sample_carries_gradients_like_jax(mesh):
