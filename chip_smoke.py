@@ -23,9 +23,16 @@ the port's CPU run on the instances and inputs whose answer is
 determined. Then the README's command-line workflow (cli_workflow):
 gen_shapes -> synth_data -> generate_cache -> train -> eval -> pose ->
 ir_extraction on two random_shape objects at lm_synth.yaml's width,
-the cache held against the CPU. Then ZoomOut on a well-conditioned pair
-and one Predictor.predict with TTA + ZoomOut candidates, card against
-CPU.
+the cache held against the CPU. Then the model-selection workflow on
+that run (model_selection: probe_ckpts over the kept checkpoints, swa,
+eval of the SWA params, resolve at top-k 3, 5 and 8, with another
+pruning schedule and naive, sym_ir, visualize corr; card against CPU)
+and train_repeat (two train() runs of one seed on one cache, bit for
+bit). Then ZoomOut on a well-conditioned pair and one Predictor.predict
+with TTA + ZoomOut candidates, card against CPU. kernel_check also holds
+the top-k and rank-major kernels at k = 1, 3, 5, 8 and 16, and the
+online frames also go through Predictor(fps_groups=8)
+(online_grouped_fps: grouped FPS picks equal to the CPU's).
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
@@ -78,6 +85,9 @@ PATH_KERNELS = {
     "cli": ("flash_cross_attention", "flash_cross_attention_backward",
             "consistency_sum_rank_major", "masked_topk_cdist",
             "masked_argmin_cdist"),
+    # model_selection: probe_ckpts, swa + eval, resolve (in process)
+    "model_selection": ("flash_cross_attention", "masked_topk_cdist",
+                        "consistency_sum_rank_major", "masked_argmin_cdist"),
 }
 
 
@@ -169,6 +179,8 @@ def check_kernels(dev) -> dict:
     rows.update(check_cdist(dev, g))
     rows["flash_cross_attention_backward"] = check_flash_backward(dev, g)
     rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
+    rows["masked_topk_cdist"]["by_k"] = topk_by_k(dev, g)
+    rows["consistency_sum_rank_major"]["by_k"] = rank_major_by_k(dev, g)
     rows["flash_cross_attention"]["instances"] = flash_instances(dev, g)
     rows["flash_cross_attention_backward"]["instances"] = \
         flash_backward_instances(dev, g)
@@ -725,6 +737,125 @@ def cdist_edges(name, kern, plain, c, dev, g) -> dict:
                 shape=f"a (3,{n},{c}) x b (3,{m},{c}): ties / 3 valid / none")
 
 
+# the k of the widened kernels' checks: every instance of the
+# top-k kernel (1, 5, 8, 16) and a k that slices one (3), and the same k
+# for the rank-major sums (chunks of 1, 3, 5, 4 x 2 and 4 x 4 ranks)
+WIDE_K = (1, 3, 5, 8, 16)
+
+
+def topk_by_k(dev, g) -> dict:
+    """Kernel 3 at each k of WIDE_K on the spectral shape (C = 30, 2048
+    queries x 5120 columns, 5000 valid) at B = 1 and B = 16, on
+    exact-grid inputs held to the plain version bit for bit (indices and
+    d2, two launches identical), and on three frames with 3 valid / no
+    valid / all columns (rows with fewer valid columns than k: the
+    k-pass's (1e9, 0) fill up to k = 8, lax.top_k's masked columns
+    above); timed by graph replay, with its bound and torch.cdist +
+    torch.topk."""
+    from pose6d_tpu_torch.ops import kernels as K
+    n, m, m_valid, c = 2048, 5120, 5000, 30
+    out = {}
+    for k in WIDE_K:
+        def kern(a, b, bv):
+            return K.masked_topk_cdist(a, b, bv, k)
+
+        def plain(a, b, bv):
+            return K.masked_topk_cdist_plain(a, b, bv, k)
+
+        def library(a, b, bv):
+            d = (torch.cdist(a, b) ** 2).masked_fill_(~bv[:, None], math.inf)
+            return torch.topk(d, k, largest=False)
+
+        row = {}
+        for label, bsz in (("b1", 1), ("b16", BATCH)):
+            a = grid_points((bsz, n, c), c, dev, g)
+            b = grid_points((bsz, m, c), c, dev, g)
+            bv = torch.arange(m, device=dev).expand(bsz, m) < m_valid
+            res = compare_cdist(f"top-{k} {label}", kern, plain, a, b, bv)
+            del res["out"]
+            b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m
+                             + 8 * bsz * n * k, 2 * c * bsz * n * m_valid)
+            row[label] = dict(res, ms=graph_ms(lambda: kern(a, b, bv)),
+                              plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
+                              library_ms=graph_ms(lambda: library(a, b, bv),
+                                                  3),
+                              bound_ms=b_ms, bound_by=by)
+        a = grid_points((3, 2000, c), c, dev, g)
+        b = grid_points((3, m, c), c, dev, g)
+        bv = torch.ones((3, m), dtype=torch.bool, device=dev)
+        bv[0] = False
+        bv[0, [7, 2600, 5100]] = True
+        bv[1] = False
+        res = compare_cdist(f"top-{k} few valid", kern, plain, a, b, bv)
+        d2, idx = res.pop("out")
+        if k > 3 and not bool((d2[:2, :, 3:] == 1e9).all()):
+            raise AssertionError(f"top-{k}: a row without k valid columns "
+                                 "is not filled with 1e9")
+        row["few_valid"] = dict(res, shape="a (3,2000,30) x b (3,5120,30): "
+                                "3 valid / none / all")
+        out[f"k={k}"] = row
+    return out
+
+
+def rank_major_by_k(dev, g) -> dict:
+    """Kernel 2 at each k of WIDE_K at V2 = 2048 (70 % of the rows live)
+    at B = 1 and B = 16, against the plain version within 1e-4 of the
+    largest sum, two launches identical, a frame with no live row all
+    zero; timed by graph replay, with its bound and cdist + einsum over
+    the PC table tiled k x k (frame by frame where the batched tables
+    would not fit)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
+    from pose6d_tpu_torch.ops.kernels.consistency import (
+        rank_major_chunks, rank_major_segments_on)
+    v2 = 2048
+    out = {}
+    for k in WIDE_K:
+        p = k * v2
+        row = {}
+        for label, bsz in (("b1", 1), ("b16", BATCH)):
+            cad = torch.rand((bsz, p, 3), device=dev, generator=g) * 20 - 10
+            pc = torch.rand((bsz, v2, 3), device=dev, generator=g) * 20 - 10
+            dpc = torch.sqrt(pairwise_sqdist(pc, pc))
+            w = (torch.rand((bsz, p), device=dev, generator=g) < 0.7).float()
+            if bsz > 1:
+                w[1] = 0.0                      # a frame without live rows
+            o1 = K.consistency_sum_rank_major(cad, dpc, w, v2)
+            o2 = K.consistency_sum_rank_major(cad, dpc, w, v2)
+            ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
+            err = (o1 - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+            if not (torch.equal(o1, o2) and err <= tol
+                    and not o1[w.sum(-1) == 0].any()):
+                raise AssertionError(f"rank-major k={k} {label}: error "
+                                     f"{err} > {tol}, launches differ, or "
+                                     "a dead frame non-zero")
+            b_ms, by = bound(4 * bsz * (3 * p + p + v2 * v2 + p),
+                             12 * float(w.sum().item()) * p)
+            # the library call's (P, P) tables, as many frames at a time
+            # as fit in ~8 GB
+            per = max(1, int(8e9 // (3 * 4 * p * p)))
+
+            def library():
+                for f in range(0, bsz, per):
+                    da = torch.cdist(cad[f:f + per], cad[f:f + per])
+                    torch.einsum("bi,bij->bj", w[f:f + per], (
+                        da - dpc[f:f + per].repeat(1, k, k)).abs_())
+
+            row[label] = dict(
+                max_abs_err=err, tol=tol,
+                ms=graph_ms(lambda: K.consistency_sum_rank_major(
+                    cad, dpc, w, v2)),
+                plain_ms=cuda_ms(lambda: K.consistency_sum_rank_major_plain(
+                    cad, dpc, w, v2), 1),
+                library_ms=cuda_ms(library, 1), bound_ms=b_ms, bound_by=by,
+                segments=rank_major_segments_on(dev, bsz, v2, k),
+                rank_chunks=rank_major_chunks(k))
+            del cad, pc, dpc, w, o1, o2, ref
+        out[f"k={k}"] = row
+    return out
+
+
 # the refiner's two calls of a B = 8 train step: (queries, keys, valid
 # queries, valid keys) of the kernel table's timing inputs, and the
 # training frames' masks (CAD 5002 of 5120; PC 622 and 2000 of 2048,
@@ -1077,8 +1208,9 @@ def sass_loop_counts() -> dict:
         return hi - lo + 1, sum(t.startswith("HMMA") for _, t in ins[lo:hi])
 
     try:
+        # the k = 5 instance (the serve path's, its row loop unrolled)
         rm = row_entry(function("consistency_rank_major.cu",
-                                "consistency_rm_kernel"))
+                                "consistency_rm_kernelILi5ELi5E"))
         pcm = row_entry(function("masked_consistency_sum.cu",
                                  "masked_consistency_kernel"))
         ins = function("flash_cross_attention.cu", "flash_fwd_kernelILi2")
@@ -3321,6 +3453,288 @@ def cli_workflow(gpu_line: str) -> dict:
     return counts
 
 
+# resolve's variants in model_selection: (label, flags)
+RESOLVE_RUNS = (("topk3", ["--topk", "3"]), ("topk5", ["--topk", "5"]),
+                ("topk8", ["--topk", "8"]),
+                ("taus", ["--topk", "5", "--taus", "0.35", "0.2", "0.1",
+                          "0.12"]),
+                ("naive", ["--solver", "naive"]))
+
+
+def model_selection(gpu_line: str) -> dict:
+    """The model-selection and analysis workflow on cli_workflow's run and
+    cache (lm_synth.yaml at full width, a checkpoint per step, the last 5
+    kept): probe_ckpts over the kept curve on both eval sets; swa of the
+    curve on the card and on the CPU; cli.eval with the SWA params on
+    the card; resolve of the eval results at top-k 3, 5, 8, at top-k 5
+    with another schedule, and naive, on the card and the CPU (copies);
+    sym_ir of the card's and the CPU's eval results; visualize corr of
+    one result. Each timed (host clock, device synchronised), its
+    launches counted from 0; the in-process card runs must launch the
+    flash forward, top-k, rank-major and argmin (PATH_KERNELS).
+
+    Held: the SWA params bit for bit (float64 sums on either device);
+    on the instances that the eval phase's rule, fixed before the run,
+    calls determined (the CPU's survivors at least SERVE_TRIGGER x the
+    PC points; the rest printed): resolve's IR within 0.01 and its
+    surviving pairs (p_pred, as a set of (CAD, PC) pairs) equal but for
+    at most 1 % of the CPU's survivors, and the probe's IR per instance
+    within 0.01; sym_ir's per-object IR within 0.01 where every instance
+    of the object is determined, its symmetries (host numpy on the same
+    CAD) equal. The resolves' card side runs on both eval sets (its
+    launches and times), the CPU side on the first.
+
+    Why the pair sets may differ on a determined instance: the top-k
+    kernel and its plain version (the JAX package's XLA expansion) round
+    a spectral distance differently, so candidates whose distances tie
+    to within that rounding swap ranks (p_pred's order) or swap across
+    the k-th rank (a pair in or out, and the sums of the pairs near it).
+    On an H100 p_pred was unequal on one determined instance of each
+    spatial variant: at k = 3 and 5 with the same survivors and IR, at
+    k = 8 and the looser schedule 1-2 survivors apart of ~1200-2400."""
+    import shutil
+
+    from pose6d_tpu_torch.cli import (eval as cli_eval, probe_ckpts, resolve,
+                                      swa, sym_ir, visualize)
+    from pose6d_tpu_torch.config import load_config
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    t_phase = time.perf_counter()
+    (run,) = (CLI_DIR / "logs").iterdir()
+    steps = [swa.checkpoint_step(c) for c in swa.select_paths(run)]
+    cfg = load_config(CLI_CONFIG, cli_overrides("cache"))
+    secs, launches, failed = {}, {}, []
+
+    def counted(label, fn, *args):
+        reset_launches()
+        secs[label], out = timed_call(fn, *args)
+        launches[label] = dict(LAUNCHES)
+        return out
+
+    inst = {"cuda": [], "cpu": []}
+    recs = counted("probe_ckpts", probe_ckpts.probe, cfg, run, CLI_NAMES, 1,
+                   0, None, "cuda", None, inst["cuda"])
+    t0 = time.perf_counter()
+    probe_ckpts.probe(cfg, run, CLI_NAMES, 1, steps[-1], None, "cpu", None,
+                      inst["cpu"])
+    secs["probe_ckpts_cpu_last_step"] = time.perf_counter() - t0
+    probe_rows = []
+    last = [r for r in inst["cuda"] if r["step"] == steps[-1]]
+    for a, b in zip(last, inst["cpu"]):
+        held = b["survivors"] >= SERVE_TRIGGER * b["pc_points"]
+        probe_rows.append({"set": a["set"], "ir": [a["ir"], b["ir"]],
+                           "survivors": [a["survivors"], b["survivors"]],
+                           "held": held})
+        if held and abs(a["ir"] - b["ir"]) > 0.01:
+            failed.append(f"probe step {steps[-1]} {a['set']}")
+
+    swa_files = {d: CLI_DIR / f"swa_{d}.msgpack" for d in ("cuda", "cpu")}
+    counted("swa", swa.main, ["--run", str(run), "--out",
+                              str(swa_files["cuda"]), "--device", "cuda"])
+    swa.main(["--run", str(run), "--out", str(swa_files["cpu"]), "--device",
+              "cpu"])
+    swa_equal = swa_files["cuda"].read_bytes() == \
+        swa_files["cpu"].read_bytes()
+    if not swa_equal:
+        failed.append("swa params")
+    swa_eval = counted("eval_swa", cli_eval.main, [
+        "--config", CLI_CONFIG, "--weights", str(swa_files["cuda"]),
+        "--save-results", "--eval-names", *CLI_NAMES, "--device", "cuda",
+        *cli_overrides("cache", "results_swa")])
+
+    resolve_rows = {}
+    for label, flags in RESOLVE_RUNS:
+        dirs = {d: CLI_DIR / f"resolve_{label}_{d}" for d in ("cuda", "cpu")}
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+            shutil.copytree(CLI_DIR / "results", d)
+        reset_launches()
+        t0 = time.perf_counter()
+        for name in CLI_NAMES:
+            resolve.main([str(dirs["cuda"] / name), "--device", "cuda",
+                          *flags])
+        torch.cuda.synchronize()
+        secs[f"resolve_{label}"] = time.perf_counter() - t0
+        launches[f"resolve_{label}"] = dict(LAUNCHES)
+        name = CLI_NAMES[0]
+        t0 = time.perf_counter()
+        resolve.main([str(dirs["cpu"] / name), "--device", "cpu", *flags])
+        secs[f"resolve_{label}_cpu_first_set"] = time.perf_counter() - t0
+        rows = []
+        for f in sorted((dirs["cpu"] / name).glob("result_*.npz")):
+            a, b = npz(dirs["cuda"] / name / f.name), npz(f)
+            held = len(b["p_pred"]) >= SERVE_TRIGGER * len(b["pcd_depth"])
+            pa = set(map(tuple, a["p_pred"].tolist()))
+            pb = set(map(tuple, b["p_pred"].tolist()))
+            row = {"set": name, "file": f.name,
+                   "ir": [float(a["ir"]), float(b["ir"])],
+                   "survivors": [len(a["p_pred"]), len(b["p_pred"])],
+                   "held": held,
+                   "p_pred_equal": bool(np.array_equal(a["p_pred"],
+                                                       b["p_pred"])),
+                   "pairs_only_card": len(pa - pb),
+                   "pairs_only_cpu": len(pb - pa)}
+            rows.append(row)
+            if held and (len(pa ^ pb) > 0.01 * len(pb)
+                         or abs(row["ir"][0] - row["ir"][1]) > 0.01):
+                failed.append(f"resolve {label} {name}/{f.name}")
+        resolve_rows[label] = rows
+
+    sym = {}
+    for name in CLI_NAMES:
+        t0 = time.perf_counter()
+        card = sym_ir.main([str(CLI_DIR / "results" / name), "--out",
+                            str(CLI_DIR / f"sym_ir_{name}.json")])
+        secs[f"sym_ir_{name}"] = time.perf_counter() - t0
+        cpu = sym_ir.analyze(CLI_DIR / "results_cpu" / name)
+        held_files = [f for f in sorted((CLI_DIR / "results_cpu" / name)
+                                        .glob("result_*.npz"))
+                      if len(npz(f)["p_pred"]) >= SERVE_TRIGGER * len(
+                          npz(f)["pcd_depth"])]
+        n_files = len(list((CLI_DIR / "results_cpu" / name).glob(
+            "result_*.npz")))
+        all_held = len(held_files) == n_files
+        sym[name] = {"card": card, "cpu": cpu, "held": all_held}
+        if card.keys() != cpu.keys() or any(
+                card[o]["symmetries"] != cpu[o]["symmetries"] for o in card):
+            failed.append(f"sym_ir {name}: symmetries differ")
+        if all_held and any(abs(card[o][k] - cpu[o][k]) > 0.01
+                            for o in card for k in ("ir", "sym_ir")):
+            failed.append(f"sym_ir {name}")
+    one = sorted((CLI_DIR / "results" / CLI_NAMES[0]).glob("result_*.npz"))[0]
+    t0 = time.perf_counter()
+    visualize.main(["corr", str(one), str(CLI_DIR / "visualize")])
+    secs["visualize_corr"] = time.perf_counter() - t0
+    plys = sorted(p.name for p in (CLI_DIR / "visualize").glob("*.ply"))
+    if plys != ["cad.ply", "correspondences.ply", "pc_aligned.ply"]:
+        failed.append(f"visualize corr wrote {plys}")
+
+    counts = {k: sum(c[k] for c in launches.values()) for k in LAUNCHES}
+    missing = [n for n in PATH_KERNELS["model_selection"] if not counts[n]]
+    emit("model_selection", gpu=gpu_line, seconds=secs,
+         phase_s=time.perf_counter() - t_phase, checkpoints=steps,
+         probe=recs, probe_card_vs_cpu_last_step=probe_rows,
+         swa_card_equals_cpu=swa_equal,
+         eval_swa_mean_ir=[c[0] for c in swa_eval],
+         resolve_card_vs_cpu=resolve_rows, sym_ir=sym,
+         visualize_corr=plys, launches=launches,
+         timing="host clock around each call, device synchronised at its "
+                "ends",
+         tol="swa bit for bit; where held (CPU survivors >= 0.25 x PC "
+             "points): resolve IR 0.01 and pair sets equal but for 1 % of "
+             "the CPU's survivors (top-k near-ties), probe IR 0.01; sym_ir "
+             "IR 0.01 where every instance is held")
+    if failed or missing:
+        raise AssertionError(f"model_selection: disagree on {failed}, not "
+                             f"launched {missing}")
+    return counts
+
+
+def train_repeat(gpu_line: str) -> None:
+    """train() twice with one seed on one cache (cli_workflow's), 8 steps
+    at B = 8 and lm_synth.yaml's full width: the two runs' losses and
+    final parameters (params_latest.msgpack) equal bit for bit. Then, to
+    name the op that parted the runs before, two more runs with the
+    NCE's feature gather back on torch.gather's own backward (atomics):
+    printed, not held."""
+    from pose6d_tpu_torch.cli import train as cli_train
+    from pose6d_tpu_torch.train import loss
+
+    def two_runs(tag):
+        runs, secs = [], []
+        for r in range(2):
+            logs = CLI_DIR / f"repeat_{tag}_{r}"
+            s, _ = timed_call(cli_train.main, [
+                "--config", CLI_CONFIG, "--device", "cuda",
+                *cli_overrides("cache"), f"logging_dir={logs}"])
+            (run,) = logs.iterdir()
+            losses = [rec["loss"] for rec in map(json.loads, (
+                run / "metrics.jsonl").read_text().splitlines())
+                if "step" in rec]
+            runs.append((losses, (run / "params_latest.msgpack")
+                         .read_bytes()))
+            secs.append(s)
+        return runs, secs
+
+    runs, secs = two_runs("fixed_order")
+    same_loss = runs[0][0] == runs[1][0]
+    same_params = runs[0][1] == runs[1][1]
+    fixed_order = loss.gather_rows
+    loss.gather_rows = lambda x, idx: torch.gather(
+        x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    try:
+        atomic, _ = two_runs("torch_gather")
+    finally:
+        loss.gather_rows = fixed_order
+    emit("train_repeat", gpu=gpu_line, seconds=secs,
+         losses=[r[0] for r in runs], losses_equal=same_loss,
+         params_equal=same_params,
+         torch_gather_losses=[r[0] for r in atomic],
+         torch_gather_params_equal=atomic[0][1] == atomic[1][1],
+         note="two cli.train runs, one seed, one cache, the NCE gather's "
+              "backward a fixed-order sum (train/loss.gather_rows); then "
+              "two with torch.gather's backward (printed, not held)")
+    if not (same_loss and same_params and len(runs[0][0]) == CLI_STEPS):
+        raise AssertionError("train_repeat: the two runs differ")
+
+
+def online_grouped_fps(frames, model, stages, gpu_line: str) -> None:
+    """The two online frames through Predictor(fps_groups=8) on the card
+    (a warm-up round, then a timed one): grouped FPS picks on the card
+    equal to the CPU's on the same cloud (online_stages' backprojected
+    points and keep mask, exact against the CPU's already); the FPS
+    stage's device ms grouped against exact (CUDA events) and both
+    covering radii."""
+    from pose6d_tpu_torch.api import Predictor
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.ops import sampling
+    bank = {f["obj"]: f["cad_ops"] for f in frames}
+    pred = Predictor(model, bank, mode="online", device="cuda", fps_groups=8)
+    K = default_intrinsics()
+    rng = np.random.default_rng(2)
+    for rnd in range(2):
+        for f in frames:
+            draws = rng.random((ONLINE_DRAW_BLOCKS, 512, 3), dtype=np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred.predict(f["depth"], K, 1.0, [f["mask"]], [f["obj"]],
+                               uniforms=[draws])[0]
+            ms = 1e3 * (time.perf_counter() - t0)
+            if rnd == 0:
+                continue
+            st = stages[f["obj"]]
+            pts, keep = st["pts"][None], st["keep"][None]
+            gp, gk = pts.cuda(), keep.cuda()
+            with torch.inference_mode():
+                idx_c, sel_c = sampling.farthest_point_sample_grouped(
+                    pts, keep, pred.max_pc, groups=8)
+                idx_g, sel_g = sampling.farthest_point_sample_grouped(
+                    gp, gk, pred.max_pc, groups=8)
+                grouped_ms = cuda_ms(lambda: sampling.
+                                     farthest_point_sample_grouped(
+                                         gp, gk, pred.max_pc, groups=8), 2)
+                exact_ms = cuda_ms(lambda: sampling.farthest_point_sample(
+                    gp, gk, pred.max_pc), 2)
+            equal = torch.equal(idx_g.cpu(), idx_c) and \
+                torch.equal(sel_g.cpu(), sel_c)
+            emit("online_grouped_fps", obj=f["obj"], gpu=gpu_line,
+                 request_ms=ms, fps_ms={"grouped_8": grouped_ms,
+                                        "exact": exact_ms},
+                 covering_radius_cm={
+                     "grouped_8": covering_radius(st["pts"], st["keep"],
+                                                  idx_c[0][sel_c[0]]),
+                     "exact": covering_radius(st["pts"], st["keep"],
+                                              st["idx"][st["sel"]])},
+                 picks_card_equal_cpu=equal,
+                 sampled_points=int(sel_c.sum()),
+                 n_inliers=int(out["n_inliers"]),
+                 timing="request: host clock around a synchronised "
+                        "predict(); fps: CUDA events around the sampler "
+                        "alone, 2 calls")
+            if not equal:
+                raise AssertionError(f"grouped FPS: card and CPU picks "
+                                     f"differ on obj {f['obj']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3363,6 +3777,7 @@ def main() -> int:
     pred, draws, results, stages, paths_online = online_request(
         online, model, gpu_line)
     online_cpu_agreement(online, model, pred, draws, results, stages)
+    online_grouped_fps(online, model, stages, gpu_line)
     disambiguation_batch(online, model, pred, stages, dev, gpu_line)
 
     frames = load_frames()
@@ -3386,6 +3801,8 @@ def main() -> int:
     paths["pose_stage"], avg = pose_stage_runs(results_dir, gpu_line)
     cli_pose(results_dir, avg)
     paths["cli"] = cli_workflow(gpu_line)
+    paths["model_selection"] = model_selection(gpu_line)
+    train_repeat(gpu_line)
     zoomout_check(frames, dev, gpu_line)
     zoomout_sensitivity(eval_items, gpu_line)
     predictor_candidates(online, model, gpu_line)
@@ -3403,7 +3820,8 @@ def main() -> int:
                      "launches_by_path": by_path,
                      **{k: row[k] for k in keys},
                      **{k: row[k] for k in ("b1", "c64", "call_ms",
-                                            "bound_tc_ms", "instances")
+                                            "bound_tc_ms", "instances",
+                                            "by_k")
                         if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)

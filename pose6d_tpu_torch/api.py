@@ -89,16 +89,19 @@ class Predictor:
         solved to a RANSAC pose and scored by depth-render consistency,
         the base map protected by the select_margin handicap and the
         select_trigger weak-base gate. predict_with_operators stays
-        base-only (it has no depth image). fps_groups > 1 (grouped FPS)
-        is not ported and raises. A gradient-feature model raises
-        ValueError: serving builds no tangent-gradient operators."""
+        base-only (it has no depth image). fps_groups > 1: grouped FPS
+        (ops/sampling.farthest_point_sample_grouped) when max_pc and
+        MAX_RAW divide by it, otherwise exact FPS, as the JAX package
+        chooses: the online path's 2000-step dependent chain becomes one
+        of 2000 / fps_groups steps over fps_groups strata, at the cost of
+        a covering radius up to ~1.35x the exact one. A gradient-feature
+        model raises ValueError: serving builds no tangent-gradient
+        operators."""
         if model.cfg.with_gradient_features:
             raise ValueError(_NO_GRAD)
         self.device = resolve_device(device)
         if mode not in ("online", "cached"):
             raise ValueError(f"mode must be 'online' or 'cached': {mode}")
-        if fps_groups > 1:
-            raise NotImplementedError(sampling.GROUPED_FPS)
         self.mode = mode
         self.model = model.to(self.device).eval()
         self.v_pc = v_pc
@@ -122,6 +125,7 @@ class Predictor:
         self._zk = zoomout_k
         self._sel_margin = select_margin
         self._sel_trigger = select_trigger
+        self._fps_groups = fps_groups
 
     # -- stages -------------------------------------------------------------
     def _cloud_from_depth(self, depth, K, cam_scale, mask):
@@ -130,8 +134,13 @@ class Predictor:
         pts, valid = geometry.backproject_depth(depth, K, cam_scale, mask,
                                                 max_points=MAX_RAW)
         keep = geometry.statistical_outlier_mask(pts, valid)
-        idx, sel_valid = sampling.farthest_point_sample(pts, keep,
-                                                        self.max_pc)
+        g = self._fps_groups
+        if g > 1 and self.max_pc % g == 0 and MAX_RAW % g == 0:
+            idx, sel_valid = sampling.farthest_point_sample_grouped(
+                pts, keep, self.max_pc, groups=g)
+        else:
+            idx, sel_valid = sampling.farthest_point_sample(pts, keep,
+                                                            self.max_pc)
         pc = torch.gather(pts, 1, idx[..., None].expand(-1, -1, 3))
         pc = torch.where(sel_valid[..., None], pc, 0.0)
         pad = self.v_pc - self.max_pc

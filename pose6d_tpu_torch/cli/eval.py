@@ -4,9 +4,9 @@ reference's scripts/eval.py).
     python -m pose6d_tpu_torch.cli.eval --config config/lm_synth.yaml \
         --weights <logdir>/params_latest.msgpack --save-results [--device cpu]
 
---weights is a flax msgpack params file (either package writes one); the
-reference's weights.pt is not read yet (ROADMAP.md, modules still to
-port, item 11).
+--weights is a flax msgpack params file (either package writes one) or
+the reference's torch checkpoint weights.pt (read with torch.load,
+tensors only, and mapped by models/port_weights.py).
 """
 from __future__ import annotations
 

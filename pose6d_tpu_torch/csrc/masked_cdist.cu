@@ -1,4 +1,6 @@
 // Fused masked cdist -> top-K (K = 1 is the masked argmin), f32.
+// Instances K = 1, 5, 8, 16; a caller's k <= 16 takes the smallest
+// K >= k and keeps the first k columns (see below).
 //
 // Replaces the TPU kernels pose6d_tpu/ops/pallas/cdist.py:40
 // masked_argmin_cdist and :99 masked_topk_cdist. For each row a_i of
@@ -9,7 +11,8 @@
 // valid columns fills its remaining slots with (1e9, 0), which is what
 // the JAX package's k-pass top-k returns there (pose6d_tpu/ops/nn.py:
 // 67-80: once the valid columns are exhausted every entry is 1e9 and
-// argmin takes column 0).
+// argmin takes column 0). So a row's top-k is the k-prefix of its top-K
+// for every K >= k, and one instance serves every smaller k.
 //
 // What bounds it on the H100. Neither instantiation writes the distance
 // matrix; both read a few hundred KB and are compute work far below the
@@ -36,7 +39,8 @@
 //   picks the count from B, N, M and the SM count).
 // - Breaks the dependency chain: each thread evaluates kQpt queries x
 //   kCpt columns per step (8 x 4 for C <= 3, 2 x 2 for C <= 32, 1 x 4
-//   for C <= 64) with independent accumulators, the queries in
+//   for C <= 64; K = 8 and 16 keep fewer queries a thread, so that the
+//   longer sorted lists stay in registers) with independent accumulators, the queries in
 //   registers and the columns read from shared memory as float4 (kCl
 //   distinct columns per warp instruction, in distinct banks), so each
 //   shared-memory wavefront feeds up to 4 * kQpt FMAs. C <= 3 skips the
@@ -78,12 +82,12 @@ constexpr float kBig = 1e9f;
 // of one warp read land in distinct 4-bank groups); the features that
 // enter the products (C <= 3 takes the CP = 4 layout and skips the
 // always-zero fourth); blocks per SM that the registers must allow.
-template <int CP> struct Tiling;
-template <> struct Tiling<4> {
+template <int CP> struct BaseTiling;
+template <> struct BaseTiling<4> {
   static constexpr int kQpt = 8, kCpt = 4, kCl = 8, kTile = 256;
   static constexpr int kStride = 4, kUsed = 3, kMinBlocks = 1;
 };
-template <> struct Tiling<32> {
+template <> struct BaseTiling<32> {
   static constexpr int kQpt = 2, kCpt = 2, kCl = 4, kTile = 128;
   static constexpr int kStride = 36, kUsed = 32, kMinBlocks = 2;
 };
@@ -92,14 +96,26 @@ template <> struct Tiling<32> {
 // step; row stride 68 (17 4-bank groups: the 8 columns of one read land
 // in distinct groups). Two blocks per SM cap the registers at 128
 // without spills; measured 28 % faster than one block of 148 registers.
-template <> struct Tiling<64> {
+template <> struct BaseTiling<64> {
   static constexpr int kQpt = 1, kCpt = 4, kCl = 8, kTile = 128;
   static constexpr int kStride = 68, kUsed = 64, kMinBlocks = 2;
 };
 
-template <int CP>
-constexpr int kRowsPerBlock = kWarps * (32 / Tiling<CP>::kCl) *
-                              Tiling<CP>::kQpt;
+// A list of K > 5 entries per query: the C <= 3 layout keeps 4 (K = 8)
+// or 2 (K = 16) queries a thread, the wider ones 1, so that a thread's
+// lists (kQpt x K distances and indices) and the butterfly's copy of
+// one list stay in registers; at C <= 64 with K = 16 one block per SM
+// may take the registers that needs.
+template <int CP, int K> struct Tiling : BaseTiling<CP> {
+  static constexpr int kQpt =
+      K <= 5 ? BaseTiling<CP>::kQpt : (CP == 4 ? (K <= 8 ? 4 : 2) : 1);
+  static constexpr int kMinBlocks =
+      (CP == 64 && K > 8) ? 1 : BaseTiling<CP>::kMinBlocks;
+};
+
+template <int CP, int K>
+constexpr int kRowsPerBlock = kWarps * (32 / Tiling<CP, K>::kCl) *
+                              Tiling<CP, K>::kQpt;
 
 // (d, j) before (e, i) in the order (d2, column).
 __device__ __forceinline__ bool before(float d, int j, float e, int i) {
@@ -144,7 +160,7 @@ __device__ __forceinline__ void store(float* od, int* oi, const float (&bd)[K],
 // writes the output; with more it writes its segment's partial lists to
 // out[((batch * splits + split) * n + row) * K].
 template <int K, int CP>
-__global__ void __launch_bounds__(kThreads, Tiling<CP>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Tiling<CP, K>::kMinBlocks)
 masked_topk_cdist_kernel(const float* __restrict__ a,
                          const float* __restrict__ b,
                          const unsigned char* __restrict__ b_valid,
@@ -152,7 +168,7 @@ masked_topk_cdist_kernel(const float* __restrict__ a,
                          int n, int m, int c, int seg, long long a_sb,
                          long long a_sn, long long b_sb, long long b_sn,
                          long long v_sb) {
-  using T = Tiling<CP>;
+  using T = Tiling<CP, K>;
   constexpr int kQpt = T::kQpt, kCpt = T::kCpt, kCl = T::kCl;
   constexpr int kTile = T::kTile, kStride = T::kStride, kUsed = T::kUsed;
   constexpr int kStep = kCl * kCpt;          // columns of one warp step
@@ -163,7 +179,7 @@ masked_topk_cdist_kernel(const float* __restrict__ a,
   const int batch = blockIdx.z, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cl = lane % kCl, ql = lane / kCl;
-  const int row0 = blockIdx.x * kRowsPerBlock<CP> +
+  const int row0 = blockIdx.x * kRowsPerBlock<CP, K> +
                    (warp * (32 / kCl) + ql) * kQpt;
   const float* ab = a + batch * a_sb;
   const float* bb = b + batch * b_sb;
@@ -304,26 +320,38 @@ merge_splits_kernel(const float* __restrict__ part_d2,
 }
 
 int padded_width(int c) {
-  return c <= Tiling<4>::kUsed ? 4 : (c <= Tiling<32>::kUsed ? 32 : 64);
+  return c <= BaseTiling<4>::kUsed ? 4 : (c <= BaseTiling<32>::kUsed ? 32 : 64);
 }
 
-template <int CP>
+template <int K, int CP>
 int plan_splits_cp(int batch, int n, int m, int sms) {
-  constexpr int rows = kRowsPerBlock<CP>;
+  constexpr int rows = kRowsPerBlock<CP, K>;
   const long long base = (long long)((n + rows - 1) / rows) * batch;
   const long long target = 2LL * sms;     // two resident blocks per SM
-  const int tiles = (m + Tiling<CP>::kTile - 1) / Tiling<CP>::kTile;
+  const int tiles = (m + Tiling<CP, K>::kTile - 1) / Tiling<CP, K>::kTile;
   long long s = target / (base > 0 ? base : 1);
   s = s < 1 ? 1 : (s > tiles ? tiles : s);
   const int per = (int)((tiles + s - 1) / s);
   return (tiles + per - 1) / per;
 }
 
-int plan_splits(int batch, int n, int m, int c, int sms) {
+template <int K>
+int plan_splits_k(int batch, int n, int m, int c, int sms) {
   switch (padded_width(c)) {
-    case 4: return plan_splits_cp<4>(batch, n, m, sms);
-    case 32: return plan_splits_cp<32>(batch, n, m, sms);
-    default: return plan_splits_cp<64>(batch, n, m, sms);
+    case 4: return plan_splits_cp<K, 4>(batch, n, m, sms);
+    case 32: return plan_splits_cp<K, 32>(batch, n, m, sms);
+    default: return plan_splits_cp<K, 64>(batch, n, m, sms);
+  }
+}
+
+// The instances: K in {1, 5, 8, 16}; 0 for any other k.
+int plan_splits(int batch, int n, int m, int c, int k, int sms) {
+  switch (k) {
+    case 1: return plan_splits_k<1>(batch, n, m, c, sms);
+    case 5: return plan_splits_k<5>(batch, n, m, c, sms);
+    case 8: return plan_splits_k<8>(batch, n, m, c, sms);
+    case 16: return plan_splits_k<16>(batch, n, m, c, sms);
+    default: return 0;
   }
 }
 
@@ -332,10 +360,10 @@ void launch(const float* a, const float* b, const unsigned char* v,
             float* d2, int* idx, float* part_d2, int* part_idx, int batch,
             int n, int m, int c, int splits, const long long* st,
             cudaStream_t stream) {
-  constexpr int kTile = Tiling<CP>::kTile;
+  constexpr int kTile = Tiling<CP, K>::kTile;
   const int tiles = (m + kTile - 1) / kTile;
   const int seg = (tiles + splits - 1) / splits * kTile;
-  const int rows = kRowsPerBlock<CP>;
+  const int rows = kRowsPerBlock<CP, K>;
   dim3 grid((n + rows - 1) / rows, splits, batch);
   masked_topk_cdist_kernel<K, CP><<<grid, kThreads, 0, stream>>>(
       a, b, v, splits == 1 ? d2 : part_d2, splits == 1 ? idx : part_idx, n,
@@ -371,16 +399,17 @@ void launch_k(const float* a, const float* b, const unsigned char* v,
 }  // namespace
 
 // The number of column segments (grid.y) the launch below takes for this
-// shape on a card with `sms` SMs; with more than one, the caller passes
-// partial-list buffers of (batch, splits, n, k).
+// shape on a card with `sms` SMs (0 for a k that is not an instance);
+// with more than one, the caller passes partial-list buffers of (batch,
+// splits, n, k).
 extern "C" int masked_topk_cdist_splits(int batch, int n, int m, int c,
-                                        int sms) {
-  return plan_splits(batch, n, m, c, sms);
+                                        int k, int sms) {
+  return plan_splits(batch, n, m, c, k, sms);
 }
 
 // a (B, N, C) and b (B, M, C) f32 with unit feature stride and the given
 // batch / row strides in elements; b_valid (B, M) bytes with batch
-// stride v_sb. C <= 64, k in {1, 5}.
+// stride v_sb. C <= 64, k in {1, 5, 8, 16}.
 extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
                                      const void* b_valid, void* out_d2,
                                      void* out_idx, void* part_d2,
@@ -406,6 +435,12 @@ extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
       break;
     case 5:
       launch_k<5>(af, bf, vf, d2, idx, pd, pi, batch, n, m, c, splits, st, s);
+      break;
+    case 8:
+      launch_k<8>(af, bf, vf, d2, idx, pd, pi, batch, n, m, c, splits, st, s);
+      break;
+    case 16:
+      launch_k<16>(af, bf, vf, d2, idx, pd, pi, batch, n, m, c, splits, st, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -5,14 +5,24 @@ Walks <data_root>/<name>/<mode>/*/depth/*.png, resolves the sibling
 scene_camera.json / scene_gt.json / scene_gt_info.json / mask_visib
 files, drops scenes with missing files (with a warning) and caches the
 scene list as JSON (scene_list.json, the JAX package's format: either
-package reads the other's). Images are read by data/png.read_png.
+package reads the other's). Depth and masks are read by
+data/png.read_png, colour frames by data/jpeg.read_jpeg (rgb/*.jpg) or
+read_png.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
 
+from .jpeg import read_jpeg
 from .png import read_png
+
+
+def read_image(path):
+    """A PNG or a baseline JPEG (by its first bytes) as PIL's array."""
+    with open(path, "rb") as f:
+        jpeg = f.read(2) == b"\xff\xd8"
+    return read_jpeg(path) if jpeg else read_png(path)
 
 
 class BOPSceneDataset:
@@ -108,5 +118,5 @@ class BOPSceneDataset:
             "seg": [read_png(p) for p in e["seg"]],
         }
         if self.color:
-            out["color"] = read_png(e["color"])
+            out["color"] = read_image(e["color"])
         return out

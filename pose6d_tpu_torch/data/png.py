@@ -5,8 +5,8 @@ the data layer needs no image library. Read: non-interlaced 8- and
 16-bit grayscale and 8-bit RGB, all five row filters (encoders such as
 PIL's pick a filter per row), image data split over several IDAT chunks,
 chunk CRCs checked. Any other form (palette, alpha, interlace, other bit
-depths) raises ValueError naming the file, and so does a JPEG: the
-port has no JPEG decoder. Write: the same three forms, unfiltered rows.
+depths) raises ValueError naming the file, and so does a JPEG, which
+data/jpeg.py reads. Write: the same three forms, unfiltered rows.
 Arrays are as PIL gives them: (H, W) uint8 or uint16, (H, W, 3) uint8.
 """
 from __future__ import annotations
@@ -26,8 +26,8 @@ _FORMS = {(0, 8): (1, np.dtype(np.uint8)), (0, 16): (1, np.dtype(">u2")),
 def read_png(path) -> np.ndarray:
     data = Path(path).read_bytes()
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: a JPEG image; the port reads PNG only "
-                         "(it has no JPEG decoder)")
+        raise ValueError(f"{path}: a JPEG image; read_png reads PNG only "
+                         "(data/jpeg.read_jpeg is the JPEG decoder)")
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []

@@ -173,11 +173,13 @@ def load_flax_checkpoint(path, model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-def save_flax_params(path, model: torch.nn.Module) -> None:
-    """Write the model's parameters as a flax {"params": ...} msgpack
-    file (pose6d_tpu.train.checkpoint.load_params reads it)."""
-    write_flax_msgpack(path, {"params": flax_from_state_dict(
-        model.state_dict())})
+def save_flax_params(path, model) -> None:
+    """Write a model's parameters (a module, or its state_dict) as a flax
+    {"params": ...} msgpack file (pose6d_tpu.train.checkpoint.load_params
+    reads it)."""
+    state = model.state_dict() if isinstance(model, torch.nn.Module) \
+        else model
+    write_flax_msgpack(path, {"params": flax_from_state_dict(state)})
 
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),

@@ -1,12 +1,13 @@
-"""ctypes binding of the port's native (C++) decimation (port of
-pose6d_tpu/native/__init__.py).
+"""ctypes bindings of the port's native (C++) host code: QEM decimation
+(a port of pose6d_tpu/native/__init__.py) and the JPEG entropy decoder
+of data/jpeg.py.
 
-``decimate.cpp`` is compiled with g++ on first use into
-``build/pose6d_tpu_torch_native/`` at the repository root (never into
-the package), under a name that carries a hash of the source and the
-flags. A failed build raises with the compiler's output: nothing falls
-back to the Python decimation silently (``decimate_mesh(...,
-use_native=False)`` asks for it).
+Each source (``decimate.cpp``, ``jpeg.cpp``) is compiled with g++ on
+first use into ``build/pose6d_tpu_torch_native/`` at the repository root
+(never into the package), under a name that carries a hash of the source
+and the flags. A failed build raises with the compiler's output: nothing
+falls back silently (``decimate_mesh(..., use_native=False)`` asks for
+the Python decimation).
 """
 from __future__ import annotations
 
@@ -19,64 +20,85 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "decimate.cpp"
+HERE = Path(__file__).resolve().parent
+SOURCE = HERE / "decimate.cpp"      # the copy of the JAX package's source
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "pose6d_tpu_torch_native"
 # the JAX package's Makefile flags: the same compiler gives the same bits
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared"]
 
-_lib = None
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+_PD = ctypes.POINTER(ctypes.c_double)
+_PI64 = ctypes.POINTER(ctypes.c_int64)
+# source stem -> {C function: (restype, argtypes)}
+SOURCES = {
+    "decimate": {"decimate_qem": (ctypes.c_int, [
+        _PD, _I64, _PI64, _I64, _I64, _PD, _PI64, _PI64, _PI64])},
+    "jpeg": {"jpeg_decode_scan": (_I64, [
+        _P, _I64, ctypes.c_int] + [_P] * 10 + [_I32, _I32, _I32])},
+}
+
+# what each library does, for the build's error messages
+LABELS = {"decimate": "decimation", "jpeg": "JPEG decoding"}
+
+_lib = None          # the decimation library, once loaded
+_libs: dict = {}     # the others, by source stem
 _lock = threading.Lock()
 
 
-def _target() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def _target(name: str) -> Path:
+    h = hashlib.sha256((HERE / f"{name}.cpp").read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libdecimate_{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def _build(target: Path) -> None:
+def _build(name: str, target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # a private name, renamed into place: parallel cache workers may build
     # at the same time
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
     cxx = os.environ.get("CXX", "g++")
     try:
-        res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True, timeout=300)
+        res = subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(HERE / f"{name}.cpp")],
+            capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"native decimation: cannot run {cxx}: {e}") \
+        raise RuntimeError(f"native {LABELS[name]}: cannot run {cxx}: {e}") \
             from e
     if res.returncode != 0:
-        raise RuntimeError(f"native decimation: {cxx} failed "
+        raise RuntimeError(f"native {LABELS[name]}: {cxx} failed "
                            f"({res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, target)
 
 
-def _load() -> ctypes.CDLL:
+def _open(name: str) -> ctypes.CDLL:
+    target = _target(name)
+    if not target.exists():
+        _build(name, target)
+    lib = ctypes.CDLL(str(target))
+    for fn, (restype, argtypes) in SOURCES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of native/<name>.cpp, built on first use."""
     global _lib
     with _lock:
-        if _lib is None:
-            target = _target()
-            if not target.exists():
-                _build(target)
-            lib = ctypes.CDLL(str(target))
-            lib.decimate_qem.restype = ctypes.c_int
-            lib.decimate_qem.argtypes = [
-                ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64)]
-            _lib = lib
-        return _lib
+        if name == "decimate":
+            if _lib is None:
+                _lib = _open(name)
+            return _lib
+        if name not in _libs:
+            _libs[name] = _open(name)
+        return _libs[name]
 
 
 def decimate_qem(verts: np.ndarray, faces: np.ndarray, target_faces: int):
     """(V', 3) float64 vertices and (F', 3) int64 faces after collapsing
     edges until at most target_faces faces remain."""
-    lib = _load()
+    lib = library("decimate")
     verts = np.ascontiguousarray(verts, np.float64)
     faces = np.ascontiguousarray(faces, np.int64)
     if verts.ndim != 2 or verts.shape[1] != 3 or faces.ndim != 2 \

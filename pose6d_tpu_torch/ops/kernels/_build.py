@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES = {
     "masked_cdist.cu": {
-        "masked_topk_cdist_splits": [_I, _I, _I, _I, _I],
+        "masked_topk_cdist_splits": [_I, _I, _I, _I, _I, _I],
         "masked_topk_cdist_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _L, _L, _L, _L, _L, _P]},
     "consistency_rank_major.cu": {

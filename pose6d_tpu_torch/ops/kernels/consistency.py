@@ -15,27 +15,39 @@ from ..geometry import pairwise_sqdist
 from . import _build
 
 # csrc/consistency_rank_major.cu's tiling (the wrapper checks it against
-# the built kernel): PC columns per block, PC rows per staged tile
-RM_COL_TILE, RM_ROW_TILE = 64, 32
+# the built kernel): PC columns per block, PC rows per staged tile, column
+# ranks per block at most; and the ranks it takes
+RM_COL_TILE, RM_ROW_TILE, RM_RANKS_PER_BLOCK = 64, 32, 5
+RM_MAX_K = 16
+_RM_WIDE = ("rank-major consistency sums on the card take k <= "
+            f"{RM_MAX_K} ranks (ROADMAP.md, section 2, row 2)")
 
 
-def rank_major_segments(bsz: int, v2: int, sms: int,
-                        blocks_per_sm: int) -> int:
+def rank_major_chunks(k: int) -> int:
+    """The chunks of column ranks one launch over k ranks takes: each
+    block owns at most RM_RANKS_PER_BLOCK ranks."""
+    return -(-k // RM_RANKS_PER_BLOCK)
+
+
+def rank_major_segments(bsz: int, v2: int, sms: int, blocks_per_sm: int,
+                        k: int = 5) -> int:
     """The number of row segments S the rank-major kernel splits its row
-    walk into (_build.plan_segments over its column blocks x B and its
-    row tiles): at least two blocks on each of `sms` SMs. Segment s
-    takes the row tiles _build.segment_tiles(tiles, S, s)."""
-    return _build.plan_segments(-(-v2 // RM_COL_TILE) * bsz,
-                                -(-v2 // RM_ROW_TILE), sms, blocks_per_sm)
+    walk into (_build.plan_segments over its column blocks x rank chunks
+    x B and its row tiles): at least two blocks on each of `sms` SMs.
+    Segment s takes the row tiles _build.segment_tiles(tiles, S, s)."""
+    return _build.plan_segments(
+        -(-v2 // RM_COL_TILE) * rank_major_chunks(k) * bsz,
+        -(-v2 // RM_ROW_TILE), sms, blocks_per_sm)
 
 
-def rank_major_segments_on(device, bsz: int, v2: int) -> int:
+def rank_major_segments_on(device, bsz: int, v2: int, k: int = 5) -> int:
     """rank_major_segments for the built kernel on the card `device` (its
     tiling and blocks per SM asked from the library once)."""
     per_sm = _build.kernel_tiles(
         _build.library("consistency_rank_major.cu").consistency_rank_major_tiles,
-        (RM_COL_TILE, RM_ROW_TILE), "consistency_sum_rank_major")
-    return rank_major_segments(bsz, v2, _build.sm_count(device), per_sm)
+        (RM_COL_TILE, RM_ROW_TILE, RM_RANKS_PER_BLOCK),
+        "consistency_sum_rank_major")
+    return rank_major_segments(bsz, v2, _build.sm_count(device), per_sm, k)
 
 
 # csrc/masked_consistency_sum.cu's tiling (checked against the built
@@ -76,15 +88,18 @@ def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
 def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
     """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
     (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
-    Returns (B, P) f32 sums."""
+    Returns (B, P) f32 sums. The card takes k = 1 to 16."""
     if coords_cad.device.type == "cpu":
         return consistency_sum_rank_major_plain(coords_cad, dpc, w, v2)
     if coords_cad.device.type != "cuda":
         raise ValueError(f"unsupported device {coords_cad.device}")
     bsz, p, c = coords_cad.shape
-    if c != 3 or p != 5 * v2:
-        raise ValueError(f"kernel takes (B, 5 * v2, 3): "
+    if c != 3 or v2 < 1 or p % v2:
+        raise ValueError(f"kernel takes (B, k * v2, 3): "
                          f"{tuple(coords_cad.shape)}, v2={v2}")
+    k = p // v2
+    if not 1 <= k <= RM_MAX_K:
+        raise ValueError(f"{_RM_WIDE}: k={k}")
     if dpc.shape != (bsz, v2, v2) or w.shape != (bsz, p):
         raise ValueError(f"bad shapes dpc{tuple(dpc.shape)} w{tuple(w.shape)}")
     if any(t.dtype != torch.float32 for t in (coords_cad, dpc, w)):
@@ -93,7 +108,7 @@ def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
         raise ValueError("coords_cad, dpc, w must be on one device")
     coords_cad, dpc, w = (t.contiguous() for t in (coords_cad, dpc, w))
     lib = _build.library("consistency_rank_major.cu")
-    segments = rank_major_segments_on(w.device, bsz, v2)
+    segments = rank_major_segments_on(w.device, bsz, v2, k)
     out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
     # the endpoints packed as (x, y, z, |a|^2) rows, and the segments'
     # partial sums (added in segment order by the kernel's last pass)
@@ -103,7 +118,7 @@ def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
     code = lib.consistency_sum_rank_major_f32(
         coords_cad.data_ptr(), dpc.data_ptr(), w.data_ptr(), out.data_ptr(),
         rows.data_ptr(), None if part is None else part.data_ptr(), bsz, v2,
-        p // v2, segments, _build.stream_ptr(w.device))
+        k, segments, _build.stream_ptr(w.device))
     _build.check(code, "consistency_sum_rank_major")
     _build.LAUNCHES["consistency_sum_rank_major"] += 1
     return out

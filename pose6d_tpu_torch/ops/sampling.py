@@ -2,7 +2,9 @@
 
 FPS is a chain of n_samples - 1 dependent argmax steps over the running
 min-distance field; here a Python loop whose pick index stays on the
-device, so the chain issues its launches without a host sync.
+device, so the chain issues its launches without a host sync. Grouped
+FPS splits the valid points into `groups` strata and runs their chains
+as one batched chain of n_samples / groups steps.
 """
 from __future__ import annotations
 
@@ -11,12 +13,7 @@ import torch
 from .geometry import fma_f32, pairwise_sqdist_fma
 from .masking import BIG
 
-GROUPED_FPS = ("grouped FPS (fps_groups > 1) is not ported yet: "
-               "ROADMAP.md, modules still to port, item 7 (online-mode "
-               "preprocessing)")
-
-
-def farthest_point_sample(points, valid, n_samples: int, groups: int = 1):
+def farthest_point_sample(points, valid, n_samples: int):
     """Deterministic farthest-point sampling on padded (B, N, 3) sets.
 
     Starts from each frame's first valid point, then adds the valid
@@ -25,8 +22,6 @@ def farthest_point_sample(points, valid, n_samples: int, groups: int = 1):
     (B, n_samples), False where a frame has fewer valid points than
     n_samples (its indices then repeat the last valid pick).
     """
-    if groups > 1:
-        raise NotImplementedError(GROUPED_FPS)
     bsz, n, _ = points.shape
     dev = points.device
     points = points.float()
@@ -45,6 +40,58 @@ def farthest_point_sample(points, valid, n_samples: int, groups: int = 1):
     n_valid = valid.sum(-1, keepdim=True)
     sel_valid = torch.arange(n_samples, device=dev)[None] < n_valid
     return idx, sel_valid
+
+
+def farthest_point_sample_grouped(points, valid, n_samples: int,
+                                  groups: int = 8):
+    """Stratified FPS with a `groups`-fold shorter dependency chain, on
+    padded (B, N, 3) sets, as the JAX package's grouped FPS.
+
+    Each frame's valid points are ranked along their largest extent axis
+    (a stable sort of that coordinate, ties to the lower index) and cut
+    into `groups` contiguous strata of equal count (stratum g starts at
+    rank ceil(g * n_valid / groups)); exact FPS picks n_samples / groups
+    points inside each stratum. The strata's chains run as one chain over
+    B * groups rows, so the device issues n_samples / groups dependent
+    steps in place of n_samples. Requires n_samples % groups == 0 and
+    N % groups == 0. Returns idx (B, n_samples) int64 indices into
+    `points` (stratum by stratum) and sel_valid (B, n_samples), False
+    where a stratum has fewer valid points than its share.
+    """
+    bsz, n, _ = points.shape
+    if n_samples % groups or n % groups:
+        raise ValueError(f"grouped FPS needs n_samples ({n_samples}) and N "
+                         f"({n}) divisible by groups ({groups})")
+    dev = points.device
+    points = points.float()
+    per_grp = n // groups
+    n_valid = torch.clamp(valid.sum(-1, keepdim=True), min=1)    # (B, 1)
+    vb = valid[..., None]
+    lo = torch.where(vb, points, BIG).amin(1)
+    hi = torch.where(vb, points, -BIG).amax(1)
+    axis = torch.argmax(hi - lo, dim=-1)                          # (B,)
+    coord = torch.gather(points, 2, axis[:, None, None].expand(-1, n, 1))
+    key = torch.where(valid, coord[..., 0], BIG)
+    order = torch.argsort(key, dim=-1, stable=True)   # valid first, by coord
+    rank = torch.argsort(order, dim=-1)               # rank of each point
+    g = torch.clamp(rank * groups // n_valid, max=groups - 1)
+    start = (g * n_valid + groups - 1) // groups      # ceil(g n_valid / G)
+    slot = torch.where(valid, g * per_grp + (rank - start), n)
+    # each valid point to its stratum's bucket; unfilled slots hold point
+    # 0, marked invalid
+    src = torch.zeros((bsz, n + 1), dtype=torch.int64, device=dev)
+    src.scatter_(1, slot, torch.arange(n, device=dev).expand(bsz, n))
+    occ = torch.zeros((bsz, n + 1), dtype=torch.bool, device=dev)
+    occ.scatter_(1, slot, valid)
+    src, occ = src[:, :n], occ[:, :n]
+    pg = torch.gather(points, 1, src[..., None].expand(-1, -1, 3))
+    idx_g, val_g = farthest_point_sample(
+        pg.reshape(bsz * groups, per_grp, 3),
+        occ.reshape(bsz * groups, per_grp), n_samples // groups)
+    # bucket index -> the frame's point index
+    idx = torch.gather(src.reshape(bsz * groups, per_grp), 1, idx_g)
+    return (idx.reshape(bsz, n_samples),
+            val_g.reshape(bsz, n_samples))
 
 
 def knn(query, query_valid, ref, ref_valid, k: int):

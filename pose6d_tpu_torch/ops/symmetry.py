@@ -1,7 +1,8 @@
 """Approximate rotational symmetries of a CAD model and the flip bank
-of pose disambiguation (host numpy; a copy of part of
+of pose disambiguation (host numpy; a copy of
 pose6d_tpu/ops/symmetry.py: _nn_dist, _axis_rotation,
-detect_symmetries, sym_rotation_error_deg, disambiguation_bank).
+detect_symmetries, sym_inlier_ratio, sym_rotation_error_deg,
+disambiguation_bank).
 
 Detection runs once per CAD model, when a Predictor is built; nothing
 here runs on the device.
@@ -84,6 +85,28 @@ def detect_symmetries(verts, rel_tau: float = 0.02, n_samples: int = 1024,
         report.append({"axis": axis.astype(np.float32), "order": n,
                        "continuous": continuous, "residual_rel": resid})
     return np.asarray(Rs, dtype=np.float32), report
+
+
+def sym_inlier_ratio(p_pred, cad_xyz, align_pc, threshold, Rs,
+                     centroid=None):
+    """Symmetry-aware inlier ratio over explicit (P, 2) index pairs.
+
+    A pair (i, j) counts as an inlier if ANY rotation in Rs (applied to
+    cad point i about the CAD centroid) lands within `threshold` of the
+    GT-aligned depth point j. With Rs = identity-only this equals the
+    plain inlier ratio on the same pairs.
+    """
+    p_pred = np.asarray(p_pred)
+    if p_pred.size == 0:
+        return 0.0
+    cad_xyz = np.asarray(cad_xyz, dtype=np.float64)
+    c = cad_xyz.mean(0) if centroid is None else np.asarray(centroid)
+    a = cad_xyz[p_pred[:, 0]] - c                       # (P, 3)
+    b = np.asarray(align_pc, dtype=np.float64)[p_pred[:, 1]] - c
+    Rs = np.asarray(Rs, dtype=np.float64)               # (S, 3, 3)
+    imgs = np.einsum("sij,pj->spi", Rs, a)              # (S, P, 3)
+    d = np.linalg.norm(imgs - b[None], axis=-1).min(0)  # (P,)
+    return float((d < threshold).mean())
 
 
 def sym_rotation_error_deg(R_gt, R_est, Rs):

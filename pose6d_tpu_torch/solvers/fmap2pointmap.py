@@ -5,9 +5,9 @@ naive_fmap2pointmap: each PC point's nearest CAD point in the aligned
 spectral embedding (the masked argmin kernel).
 
 spatial_filtering_fmap2pointmap: top-k spectral CAD candidates per PC
-point, then three rounds of pairwise-distance-consistency pruning at
-(0.3, 0.15, 0.055 with a 0.065 fallback) x the CAD diameter. Two
-layouts of the same sums:
+point (k = 5 by default), then rounds of pairwise-distance-consistency
+pruning on the schedule `taus` (by default 0.3, 0.15, then 0.055 with a
+0.065 fallback) x the CAD diameter. Two layouts of the same sums:
 - rank-major (default; pair index = rank * V2 + pc_point): the PC side
   of the (P, P) distance matrix is the (V2, V2) point table tiled
   k x k, and the sums read that table (consistency_sum_rank_major);
@@ -25,8 +25,8 @@ from ..ops.kernels.consistency import (consistency_sum_rank_major,
                                        masked_consistency_sum)
 from ..ops.nn import nearest_valid, topk_valid
 
-K_CANDIDATES = 5                    # spectral candidates per PC point
-TAUS = (0.3, 0.15, 0.055, 0.065)    # pruning schedule, x diam(CAD)
+K_CANDIDATES = 5                    # default spectral candidates per PC point
+TAUS = (0.3, 0.15, 0.055, 0.065)    # default pruning schedule, x diam(CAD)
 
 
 def naive_fmap2pointmap(C, evecs_x, evecs_y, x_valid, y_valid):
@@ -59,10 +59,13 @@ def _consistency_mean(ca, cb, row_valid, row_subsample: int = 0):
     return masked_consistency_sum(ca, cb, w) / denom
 
 
-def _prune_schedule(cmean, valid, diam_cad, means=None):
+def _prune_schedule(cmean, valid, taus, diam_cad, means=None):
     """Plain rounds for every tau but the last two, then the (tight,
     loose-fallback) final round. valid (B, P); diam_cad (B,). Appends
     each round's means to `means` when it is a list."""
+    if len(taus) < 2:
+        raise ValueError(f"taus needs at least the final (tight, loose) "
+                         f"pair: {taus}")
     diam = diam_cad[:, None]
 
     def round_mean(v):
@@ -71,33 +74,36 @@ def _prune_schedule(cmean, valid, diam_cad, means=None):
             means.append(m)
         return m
 
-    for tau in TAUS[:-2]:
+    for tau in taus[:-2]:
         valid = valid & (round_mean(valid) < tau * diam)
     m = round_mean(valid)
-    keep_tight = valid & (m < TAUS[-2] * diam)
-    keep_loose = valid & (m < TAUS[-1] * diam)
+    keep_tight = valid & (m < taus[-2] * diam)
+    keep_loose = valid & (m < taus[-1] * diam)
     return torch.where(keep_tight.any(-1, keepdim=True), keep_tight,
                        keep_loose)
 
 
 def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
                                     x_valid, y_valid, diam_cad,
+                                    k: int = K_CANDIDATES, taus=TAUS,
                                     rank_major: bool = True,
                                     row_subsample: int = 0,
                                     return_means: bool = False):
     """C (B, K, K); evecs_x (B, V1, K), evecs_y (B, V2, K); cad_xyz
     (B, V1, 3), pc_xyz (B, V2, 3); x_valid (B, V1), y_valid (B, V2);
-    diam_cad (B,).
+    diam_cad (B,); k spectral candidates per PC point; taus the pruning
+    schedule as fractions of diam_cad: a plain round for every entry but
+    the last two, which are the (tight, loose-fallback) final round.
 
     Returns pairs (B, 2, V2 * k) int32 with rows [cad_idx, pc_idx] in
-    PC-major order (as the JAX package), and valid (B, V2 * k) bool,
-    k = K_CANDIDATES; with return_means, also the list of each pruning
-    round's consistency means (B, V2 * k), PC-major (diagnostics).
+    PC-major order (as the JAX package), and valid (B, V2 * k) bool;
+    with return_means, also the list of each pruning round's consistency
+    means (B, V2 * k), PC-major (diagnostics).
     """
     if rank_major and row_subsample:
         raise ValueError("row_subsample applies to the PC-major path "
                          "(rank_major=False)")
-    k = K_CANDIDATES
+    taus = tuple(float(t) for t in taus)
     bsz, v2 = y_valid.shape
     diam_cad = torch.as_tensor(diam_cad, dtype=torch.float32,
                                device=cad_xyz.device).expand(bsz)
@@ -125,13 +131,13 @@ def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
             return x.reshape(bsz, k, v2).transpose(1, 2).reshape(bsz, -1)
 
         valid = pc_major(_prune_schedule(cmean, y_valid.repeat(1, k),
-                                         diam_cad, means))
+                                         taus, diam_cad, means))
         means = None if means is None else [pc_major(m) for m in means]
     else:
         ca, cb = gather(cad_xyz, cad_idx), gather(pc_xyz, pc_idx)
         valid = _prune_schedule(
             lambda v: _consistency_mean(ca, cb, v, row_subsample),
-            y_valid.repeat_interleave(k, dim=1), diam_cad, means)
+            y_valid.repeat_interleave(k, dim=1), taus, diam_cad, means)
     if return_means:
         return pairs, valid, means
     return pairs, valid

@@ -40,13 +40,27 @@ def _rotation_from_H_quat(H):
     ], -2)
 
 
-def kabsch_umeyama(src, dst, weights):
+def _rotation_from_H_svd(H):
+    """The same rotation from H = U S V^T: R = V diag(1, 1, sign det(V
+    U^T)) U^T (the JAX package's method="svd")."""
+    U, _, Vh = torch.linalg.svd(H)
+    V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
+    sign = torch.sign(torch.linalg.det(V @ Ut))
+    S = torch.diag_embed(torch.stack(
+        [torch.ones_like(sign), torch.ones_like(sign), sign], -1))
+    return V @ S @ Ut
+
+
+def kabsch_umeyama(src, dst, weights, method: str = "quat"):
     """Rigid (R, t) minimizing sum_i w_i ||R src_i + t - dst_i||^2.
 
-    src, dst (..., N, 3); weights (..., N) nonnegative. Returns R
-    (..., 3, 3), t (..., 3). Degenerate inputs (all-zero weights or rank
-    deficiency) return a finite, valid rotation.
+    src, dst (..., N, 3); weights (..., N) nonnegative; method "quat"
+    (Horn's quaternion, the default) or "svd". Returns R (..., 3, 3), t
+    (..., 3). Degenerate inputs (all-zero weights or rank deficiency)
+    return a finite, valid rotation.
     """
+    if method not in ("quat", "svd"):
+        raise ValueError(f"method must be 'quat' or 'svd': {method!r}")
     src = src.float()
     dst = dst.float()
     w = weights.float()
@@ -58,7 +72,8 @@ def kabsch_umeyama(src, dst, weights):
         (dst - mu_d[..., None, :]) * wn)
     # tiny jitter keeps the eigensolve well-behaved on degenerate inputs
     H = H + 1e-12 * torch.eye(3, dtype=H.dtype, device=H.device)
-    R = _rotation_from_H_quat(H)
+    R = (_rotation_from_H_quat(H) if method == "quat"
+         else _rotation_from_H_svd(H))
     t = mu_d - (R @ mu_s[..., None])[..., 0]
     return R, t
 

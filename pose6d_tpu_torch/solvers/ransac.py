@@ -1,10 +1,11 @@
 """Batched correspondence-RANSAC pose estimation (port of pose6d_tpu/solvers/ransac.py).
 
-Blocks of 3-point triad hypotheses are drawn from each frame's compacted
-valid table, solved in closed form and scored together; a frame stops
-drawing once its best hypothesis's inlier ratio eps meets the trial
-bound T(eps) = log(1 - confidence) / log(1 - eps^3), or when the budget
-is spent. Frames of a batch exit independently: a frame that has met its
+Blocks of hypotheses are drawn from each frame's compacted valid table
+(3-point triads solved in closed form by default; any other sample size
+by a weighted Kabsch solve) and scored together; a frame stops drawing
+once its best hypothesis's inlier ratio eps meets the trial bound
+T(eps) = log(1 - confidence) / log(1 - eps^s), s the sample size, or
+when the budget is spent. Frames of a batch exit independently: a frame that has met its
 bound keeps its best hypothesis while the others go on (as jax.vmap over
 lax.while_loop does). Two least-squares refits on the inliers follow.
 """
@@ -18,24 +19,25 @@ from .kabsch import kabsch_umeyama, transform_residuals, triad_rigid
 
 CONFIDENCE = 0.999   # success confidence of the early-exit bound
 REFIT_ROUNDS = 2
-SAMPLE_SIZE = 3      # triad hypotheses
 
 
-def _required_trials(best, n_valid):
+def _required_trials(best, n_valid, sample_size: int):
     eps = torch.clamp(best / n_valid, 0.0, 1.0)
-    p_good = torch.clamp(eps ** SAMPLE_SIZE, 1e-12, 1.0 - 1e-7)
+    p_good = torch.clamp(eps ** sample_size, 1e-12, 1.0 - 1e-7)
     return math.log1p(-CONFIDENCE) / torch.log1p(-p_good)
 
 
 def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
-                hyp_block: int = 1024, generator=None, uniforms=None):
+                hyp_block: int = 1024, generator=None, uniforms=None,
+                sample_size: int = 3):
     """Robust (R, t) from putative correspondences, per frame.
 
     src, dst (B, N, 3) CAD- and PC-side coordinates; valid (B, N) bool;
-    threshold (B,) or scalar inlier distance. Draws come from
-    `generator` (a torch.Generator on src's device) or, if given, from
-    `uniforms` (B, n_blocks, hyp_block, 3) in [0, 1), which lets a test
-    hand the JAX package the same draws.
+    threshold (B,) or scalar inlier distance; sample_size points per
+    hypothesis (3: the closed-form triad; any other: kabsch_umeyama).
+    Draws come from `generator` (a torch.Generator on src's device) or,
+    if given, from `uniforms` (B, n_blocks, hyp_block, sample_size) in
+    [0, 1), which lets a test hand the JAX package the same draws.
 
     Returns dict: R (B, 3, 3), t (B, 3), inliers (B, N) bool,
     n_inliers (B,), n_trials (B,) trials drawn, ok (B,) bool.
@@ -58,12 +60,17 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
     rows = torch.arange(bsz, device=dev)[:, None, None]
 
     def run_block(u):
-        """Best hypothesis of one block per frame; u (B, hyp_block, 3)."""
+        """Best hypothesis of one block per frame; u (B, hyp_block,
+        sample_size)."""
         slots = (u * n_valid_i.float()[:, None, None]).to(torch.int32)
         slots = torch.minimum(slots, max_slot).long()
         samples = torch.gather(valid_idx, 1, slots.reshape(bsz, -1))
-        samples = samples.reshape(bsz, hyp_block, SAMPLE_SIZE)
-        Rs, ts = triad_rigid(src[rows, samples], dst[rows, samples])
+        samples = samples.reshape(bsz, hyp_block, sample_size)
+        if sample_size == 3:
+            Rs, ts = triad_rigid(src[rows, samples], dst[rows, samples])
+        else:
+            Rs, ts = kabsch_umeyama(src[rows, samples], dst[rows, samples],
+                                    torch.ones(samples.shape, device=dev))
         # residual planes with the 3-wide contraction unrolled
         d2 = torch.zeros((bsz, hyp_block, n), dtype=torch.float32,
                          device=dev)
@@ -84,14 +91,15 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
     done = torch.zeros(bsz, dtype=torch.int64, device=dev)
     for blk in range(n_blocks):
         active = (done < n_blocks) & (
-            done * hyp_block < _required_trials(best, n_valid))
+            done * hyp_block < _required_trials(best, n_valid,
+                                                sample_size))
         if not bool(active.any()):
             break
         if uniforms is not None:
             u = uniforms[:, blk].to(device=dev, dtype=torch.float32)
         else:
-            u = torch.rand((bsz, hyp_block, SAMPLE_SIZE), generator=generator,
-                           device=dev)
+            u = torch.rand((bsz, hyp_block, sample_size),
+                           generator=generator, device=dev)
         Rb, tb, cb = run_block(u)
         better = active & (cb > best)
         R = torch.where(better[:, None, None], Rb, R)

@@ -5,9 +5,10 @@ per-step and per-epoch scalars (metrics.jsonl), the optional train-IR
 probe, checkpoints every checkpoint_interval epochs and every
 checkpoint_every_steps steps (full resume state, .pt), the weights-only
 params_latest.msgpack export (flax msgpack), an optional pretrained
-init from a flax msgpack params file (load_pretrained_params: an
-xyz-trained checkpoint warm-starts a model with appended input channels,
-any other shape mismatch raises), and resume from the run directory's
+init from a flax msgpack params file or the reference's weights.pt
+(load_pretrained_params: an xyz-trained checkpoint warm-starts a model
+with appended input channels, any other shape mismatch raises), and
+resume from the run directory's
 latest checkpoint. A fresh model is drawn as flax draws one
 (models.weights.init_like_flax).
 
@@ -30,7 +31,8 @@ import torch
 from ..data.dataset import dataset_from_config
 from ..data.pipeline import HostLoader, to_device
 from ..models import DPFMNet, init_like_flax
-from ..models.port_weights import extend_first_lin_input
+from ..models.port_weights import (extend_first_lin_input,
+                                   load_reference_checkpoint)
 from ..models.weights import (flax_from_state_dict, read_flax_msgpack,
                               state_dict_from_flax)
 from ..runtime import resolve_device
@@ -43,9 +45,6 @@ from .train_step import TrainStep
 
 _NO_MESH = ("data-parallel training over several GPUs is not ported yet "
             "(ROADMAP.md, modules still to port, item 11)")
-_NO_PT = ("the reference's torch checkpoint (.pt) is not ported yet "
-          "(ROADMAP.md, modules still to port, item 11): pass a flax "
-          "msgpack params file")
 
 
 class ConcatDataset:
@@ -92,16 +91,19 @@ def _prefix_input_rows(model_cfg) -> set:
 
 def load_pretrained_params(path: str, template: dict,
                            model_cfg=None) -> dict:
-    """A flax msgpack params file as a {"params": tree} for a model
-    whose own tree is `template` ({"params": flax_from_state_dict(...)}).
+    """A flax msgpack params file, or the reference's torch checkpoint
+    (a .pt path, models/port_weights.load_reference_checkpoint), as a
+    {"params": tree} for a model whose own tree is `template`
+    ({"params": flax_from_state_dict(...)}).
     When the file's first_lin has fewer input rows than the template's,
     the same width, and a row count that is a prefix of model_cfg's
     channel layout, its rows are zero-extended (extend_first_lin_input);
     a narrower checkpoint that is not a prefix raises. Other mismatches
     raise when the tree is loaded strictly."""
     if str(path).endswith(".pt"):
-        raise NotImplementedError(_NO_PT)
-    loaded = read_flax_msgpack(path)
+        loaded = load_reference_checkpoint(path)
+    else:
+        loaded = read_flax_msgpack(path)
     try:
         tk = template["params"]["feature_extractor"]["first_lin"]["kernel"]
         lk = loaded["params"]["feature_extractor"]["first_lin"]["kernel"]

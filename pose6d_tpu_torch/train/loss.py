@@ -6,6 +6,13 @@ valid slots of the pair buffer (uniform sampling without replacement).
 The Gumbel draws come in as an argument, (B, pair buffer), so a test
 can hand in the JAX package's draws; train_step draws them from a
 torch.Generator.
+
+The NCE gathers the features of the subsampled pairs, and a CAD or PC
+point can appear in several pairs. torch.gather's backward on the card
+adds those rows' gradients with atomics, in an order that changes from
+run to run, so two runs of one seed would part after the first step; on
+the card the gather's backward here is index_put_ with accumulate=True,
+the sort-based variant that PyTorch's deterministic mode takes for it.
 """
 from __future__ import annotations
 
@@ -51,6 +58,33 @@ def _l2n(f):
     return f * torch.rsqrt((f * f).sum(-1, keepdim=True) + 1e-12)
 
 
+class _GatherRows(torch.autograd.Function):
+    """torch.gather of whole rows, whose backward sums the gradients of
+    repeated rows in a fixed order (index_put_ with accumulate=True)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        out = grad.new_zeros(ctx.shape)
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        out.index_put_((rows.expand_as(idx), idx), grad, accumulate=True)
+        return out, None
+
+
+def gather_rows(x, idx):
+    """x (B, V, C), idx (B, N) int64 -> x's rows (B, N, C); on the card
+    with a backward that repeats bit for bit (see the module note)."""
+    if x.device.type == "cuda" and x.requires_grad:
+        return _GatherRows.apply(x, idx)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
 def nce_softmax_loss(gumbel, feat1, feat2, pairs, pairs_valid, nce_t: float,
                      num_pairs: int):
     """InfoNCE over a subsample of GT pairs, per sample (B,).
@@ -65,9 +99,8 @@ def nce_softmax_loss(gumbel, feat1, feat2, pairs, pairs_valid, nce_t: float,
     sel_valid = torch.gather(pairs_valid, 1, sel)
     q_idx = torch.gather(pairs[..., 0].long(), 1, sel)
     k_idx = torch.gather(pairs[..., 1].long(), 1, sel)
-    c = feat1.shape[-1]
-    q = torch.gather(_l2n(feat1), 1, q_idx[..., None].expand(-1, -1, c))
-    k = torch.gather(_l2n(feat2), 1, k_idx[..., None].expand(-1, -1, c))
+    q = gather_rows(_l2n(feat1), q_idx)
+    k = gather_rows(_l2n(feat2), k_idx)
     d = torch.sqrt(torch.clamp(pairwise_sqdist(q, k), min=1e-12))
     logits = -d / nce_t
     # invalid keys must not act as negatives

@@ -120,11 +120,12 @@ def test_predictor_defaults_to_cuda():
         Predictor(model, {})
 
 
-@pytest.mark.parametrize("option", [{"fps_groups": 8}])
+@pytest.mark.parametrize("option", [{"mode": "batch"}])
 def test_unported_options_raise(option):
-    """Grouped FPS is not ported: the Predictor refuses it, naming the
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An option value the Predictor does not take raises. (Grouped FPS,
+    refused here before it was ported, is held to JAX's in
+    tests/test_torch_solver_options.py.)"""
+    with pytest.raises(ValueError, match="mode"):
         Predictor(DPFMNet(), {}, device="cpu", **option)
 
 

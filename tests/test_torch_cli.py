@@ -198,9 +198,15 @@ def test_multihost_flags_raise(cli, flag, tmp_path):
 
 
 def test_eval_refuses_reference_pt_weights(workflow, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """cli.eval reads a .pt as the reference's weights.pt (held to the
+    msgpack path in tests/test_torch_model_selection.py); a .pt without
+    that layout is refused, naming the first missing key."""
+    bad = tmp_path / "weights.pt"
+    torch.save({"feature_extractor.first_lin.weight": torch.zeros(64, 3)},
+               bad)
+    with pytest.raises(KeyError, match="feature_extractor.first_lin.bias"):
         cli_eval.main(["--config", CONFIG, "--device", "cpu", "--weights",
-                       str(tmp_path / "weights.pt"), *workflow["overrides"]])
+                       str(bad), *workflow["overrides"]])
 
 
 def test_stage_timer_summary():

@@ -137,9 +137,6 @@ def test_farthest_point_sample_matches_jax(n_valid):
     np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ref_i))
     np.testing.assert_array_equal(sel[0].numpy(), np.asarray(ref_v))
     assert valid[idx[0].numpy()[sel[0].numpy()]].all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.farthest_point_sample(_t(pts)[None], _t(valid)[None], 200,
-                                       groups=8)
 
 
 def test_knn_matches_jax():

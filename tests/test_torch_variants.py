@@ -295,8 +295,8 @@ def test_extend_first_lin_input_is_function_preserving():
 def test_load_pretrained_params_prefix_rule(tmp_path):
     """xyz (3 rows) into xyz_hks (19): widened, as JAX widens it. An
     hks-only checkpoint (16 rows) into xyz_hks: 16 is not a prefix of
-    xyz -> hks, refused. xyz into hks_wks: refused. A .pt file: refused,
-    naming ROADMAP item 11."""
+    xyz -> hks, refused. xyz into hks_wks: refused. The same xyz weights
+    in the reference's weights.pt layout: widened alike."""
     cfg = DPFMConfig(input_features="xyz_hks")
     template = {"params": flax_from_state_dict(DPFMNet(cfg).state_dict())}
     got = load_pretrained_params(str(XYZ_CKPT), template, cfg)
@@ -318,8 +318,18 @@ def test_load_pretrained_params_prefix_rule(tmp_path):
     t2 = {"params": flax_from_state_dict(DPFMNet(cfg2).state_dict())}
     with pytest.raises(ValueError, match="not a prefix"):
         load_pretrained_params(str(XYZ_CKPT), t2, cfg2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_pretrained_params(str(tmp_path / "weights.pt"), template, cfg)
+    # the reference's weights.pt layout (xyz, 3 rows) widens the same way
+    from test_torch_model_selection import reference_state_dict
+    xyz = DPFMNet(DPFMConfig())
+    xyz.load_state_dict(state_dict_from_flax(
+        read_flax_msgpack(XYZ_CKPT)["params"]))
+    torch.save(reference_state_dict(xyz), tmp_path / "weights.pt")
+    got_pt = load_pretrained_params(str(tmp_path / "weights.pt"), template,
+                                    cfg)
+    fp = _flat(got_pt["params"])
+    assert fp.keys() == fr.keys()
+    for k in fr:
+        np.testing.assert_array_equal(fp[k], np.asarray(fr[k]), err_msg=k)
 
 
 def test_train_warm_starts_hks_model_from_xyz(tmp_path):
