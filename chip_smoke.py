@@ -32,7 +32,11 @@ bit). Then ZoomOut on a well-conditioned pair and one Predictor.predict
 with TTA + ZoomOut candidates, card against CPU. kernel_check also holds
 the top-k and rank-major kernels at k = 1, 3, 5, 8 and 16, and the
 online frames also go through Predictor(fps_groups=8)
-(online_grouped_fps: grouped FPS picks equal to the CPU's).
+(online_grouped_fps: grouped FPS picks equal to the CPU's) and through
+the serving export (serving_export: each frame's torch.export artifact,
+exported on the card and on the CPU, bit for bit the live request, then
+replayed in a process that imports only torch and the op
+registrations).
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -88,6 +93,9 @@ PATH_KERNELS = {
     # model_selection: probe_ckpts, swa + eval, resolve (in process)
     "model_selection": ("flash_cross_attention", "masked_topk_cdist",
                         "consistency_sum_rank_major", "masked_argmin_cdist"),
+    # serving_export: the exported artifact's requests (the online frame)
+    "export": ("flash_cross_attention", "consistency_sum_rank_major",
+               "masked_topk_cdist", "masked_argmin_cdist"),
 }
 
 
@@ -1399,11 +1407,268 @@ def online_stages(pred, frame, draws, timed: bool) -> dict:
     return {"pts": pts[0].cpu(), "valid": valid[0].cpu(),
             "keep": keep[0].cpu(), "idx": idx[0].cpu(),
             "sel": sel[0].cpu(), "evals": evals[0].cpu(),
-            "lobpcg_iters": iters[0], "R": fix["R"][0].cpu().numpy(),
+            "lobpcg_iters": int(iters[0]), "R": fix["R"][0].cpu().numpy(),
             "t": fix["t"][0].cpu().numpy(),
             "hypothesis": int(fix["hypothesis"][0]),
             "base_R": out["R"][0].cpu().numpy(),
             "ops": {k: v for k, v in ops.items()}, "ms": ms}
+
+
+SERVE_DIR = ROOT / "build" / "chip_smoke_serving"
+# JAX's own tolerance for an artifact against the live request
+# (tests/test_serving.py), held only where the bits differ
+EXPORT_TOL = {"R": 1e-5, "t": 1e-4}
+
+
+def loop_reads(fn) -> dict:
+    """Run fn() (a live request) with its traceable loops counted
+    (ops/loops.run_while, as FPS, LOBPCG, RANSAC and ICP call it): the
+    condition reads of the live run, and those of the artifact, whose
+    while_loop reads its condition once per step and once to stop (a
+    fixed-count loop reads nothing live). {"live": {loop: reads},
+    "artifact": {loop: reads}}."""
+    from pose6d_tpu_torch.ops import loops, sampling
+    from pose6d_tpu_torch.solvers import icp, ransac
+    from pose6d_tpu_torch.spectral import lobpcg
+    reads = {"live": {}, "artifact": {}}
+
+    def add(side, name, n):
+        reads[side][name] = reads[side].get(name, 0) + n
+
+    def counted(name):
+        def run(cond, body, state, steps=None):
+            def read(*st):
+                add("live", name, 1)
+                add("artifact", name, 1)
+                return cond(*st)
+            if steps is not None:
+                add("live", name, 0)
+                add("artifact", name, steps + 1)
+            return loops.run_while(read, body, state, steps=steps)
+        return run
+
+    mods = {"fps": sampling, "lobpcg": lobpcg, "ransac": ransac, "icp": icp}
+    try:
+        for name, mod in mods.items():
+            mod.run_while = counted(name)
+        fn()
+    finally:
+        for mod in mods.values():
+            mod.run_while = loops.run_while
+    return reads
+
+
+def first_differing_op(run_a, run_b) -> dict:
+    """Where two runs of one computation part: each runs under a dispatch
+    mode that digests the bits of every aten op's tensor outputs (view
+    ops skipped), and the first op of run_b whose output digest run_a
+    never produced is named, with its position among run_b's ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Digests(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names, self.sums = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.numel():
+                        b = t.detach().reshape(-1)
+                        b = (b.to(torch.uint8) if b.dtype == torch.bool
+                             else b).contiguous().view(torch.uint8)
+                        w = torch.arange(b.numel(), device=b.device) % 65521
+                        self.names.append(str(func))
+                        self.sums.append(((w + 1) * b.to(torch.int64)).sum()
+                                         + 1000003 * b.numel())
+            return out
+
+    seen = []
+    for run in (run_a, run_b):
+        mode = Digests()
+        with mode:
+            run()
+        seen.append((mode.names, torch.stack(mode.sums).tolist()))
+    a_sums = set(seen[0][1])
+    for i, (name, d) in enumerate(zip(*seen[1])):
+        if d not in a_sums:
+            return {"op": name, "index": i, "ops": [len(seen[0][0]),
+                                                   len(seen[1][0])]}
+    return {"op": None, "ops": [len(seen[0][0]), len(seen[1][0])]}
+
+
+def hold_outputs(what: str, got: dict, want: dict, rerun) -> dict:
+    """got against want on the artifact's outputs: bit for bit, or, where
+    any bit differs, the first op that differs (rerun(): (run_a, run_b)
+    for first_differing_op) and JAX's tolerance, which raises when
+    broken."""
+    from pose6d_tpu_torch.serving import OUTPUTS
+    differ = [k for k in OUTPUTS
+              if not np.array_equal(np.asarray(got[k]), np.asarray(want[k]))]
+    if not differ:
+        return {"bit_equal": True}
+    where = first_differing_op(*rerun())
+    err = {k: float(np.abs(np.asarray(got[k], np.float64)
+                           - np.asarray(want[k], np.float64)).max())
+           for k in EXPORT_TOL}
+    held = {"bit_equal": False, "differ": differ, "first_op": where,
+            "max_abs_err": err, "tol": EXPORT_TOL}
+    if any(err[k] > EXPORT_TOL[k] for k in EXPORT_TOL) or int(
+            got["n_inliers"]) != int(want["n_inliers"]):
+        raise AssertionError(f"{what}: outside JAX's tolerance {held}")
+    return held
+
+
+def graph_nodes(blob: bytes) -> dict:
+    """Nodes of the artifact's graph, with and without its while_loop
+    bodies and conditions, and its op nodes by kind."""
+    import io
+    program = torch.export.load(io.BytesIO(blob))
+    top = program.graph_module
+    subs = [m for m in top.modules() if m is not top
+            and isinstance(m, torch.fx.GraphModule)]
+    calls = [str(n.target) for n in top.graph.nodes
+             if n.op == "call_function"]
+    return {"top": len(top.graph.nodes),
+            "with_loop_bodies": len(top.graph.nodes)
+            + sum(len(m.graph.nodes) for m in subs),
+            "while_loops": sum("while_loop" in c for c in calls),
+            "kernel_ops": {c.split(".")[1]: calls.count(c) for c in
+                           sorted(set(calls)) if c.startswith("pose6d")}}
+
+
+REPLAY = """
+import json, sys, torch
+from pose6d_tpu_torch.serving import load_exported
+from pose6d_tpu_torch.ops.kernels import LAUNCHES
+out = {}
+for obj in sys.argv[2:]:
+    d = torch.load(f"{sys.argv[1]}/inputs_{obj}.pt")
+    fn = load_exported(open(f"{sys.argv[1]}/frame_{obj}.pt2", "rb").read())
+    r = fn(*[t.cuda() for t in d["inputs"]], d["uniforms"].cuda())
+    torch.save({k: v.cpu() for k, v in r.items()},
+               f"{sys.argv[1]}/replay_{obj}.pt")
+print(json.dumps({"launches": LAUNCHES, "modules": sorted(
+    m for m in sys.modules if m.startswith(("pose6d_tpu", "jax")))}))
+"""
+
+
+def serving_export(frames, model, pred, draws, gpu_line: str) -> dict:
+    """The online frame as one torch.export artifact (serving.py), per
+    online frame at full width (the default Predictor on the card):
+    exported on the card (bytes, export and load seconds, graph nodes),
+    replayed against the live Predictor.predict on the same draws bit
+    for bit; exported on the CPU and loaded with device="cuda", held
+    against the card's artifact; the four online kernels launched by
+    the artifact's run (LAUNCHES); a subprocess with only torch and the
+    op registrations imported replays both artifacts; the artifact's
+    request against the live one, medians of 5 in turns, with each
+    side's host reads of its loop conditions.
+    Returns the launches of the artifact's runs."""
+    from pose6d_tpu_torch import serving
+    from pose6d_tpu_torch.api import Predictor
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.ops.kernels import reset_launches
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    K = default_intrinsics()
+    cpu_pred = Predictor(cpu_copy(model), {f["obj"]: f["cad_ops"]
+                                           for f in frames},
+                         mode="online", device="cpu")
+    total, arts = {}, {}
+    for f in frames:
+        obj = f["obj"]
+        inputs = tuple(torch.as_tensor(x, device="cuda") for x in (
+            f["depth"].astype(np.float32), K.astype(np.float32),
+            np.float32(1000.0), f["mask"]))
+        u = torch.as_tensor(draws[obj], device="cuda")
+
+        def live():
+            return pred.predict(f["depth"], K, 1.0, [f["mask"]], [obj],
+                                uniforms=[draws[obj]])[0]
+
+        t0 = time.perf_counter()
+        blob = serving.export_predictor(pred, obj, f["depth"].shape)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = serving.load_exported(blob)
+        load_s = time.perf_counter() - t0
+        reset_launches()
+        art = {k: v.cpu().numpy() for k, v in fn(*inputs, u).items()}
+        arts[str(obj)] = art
+        counts = launched(PATH_KERNELS["export"], "export")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        want = live()
+        vs_live = hold_outputs(
+            f"artifact against live, obj {obj}", art, want,
+            lambda: (live, lambda: fn(*inputs, u)))
+
+        t0 = time.perf_counter()
+        cpu_blob = serving.export_predictor(cpu_pred, obj, f["depth"].shape)
+        cpu_export_s = time.perf_counter() - t0
+        moved = serving.load_exported(cpu_blob, device="cuda")
+        got = {k: v.cpu().numpy() for k, v in moved(*inputs, u).items()}
+        vs_card = hold_outputs(
+            f"CPU-exported artifact on the card, obj {obj}", got, art,
+            lambda: (lambda: fn(*inputs, u), lambda: moved(*inputs, u)))
+
+        (SERVE_DIR / f"frame_{obj}.pt2").write_bytes(blob)
+        torch.save({"inputs": [t.cpu() for t in inputs],
+                    "uniforms": u.cpu()}, SERVE_DIR / f"inputs_{obj}.pt")
+        reads = loop_reads(live)
+        ms = {"live": [], "artifact": []}
+        for rep in range(5):
+            for name in (("live", "artifact") if rep % 2 == 0
+                         else ("artifact", "live")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "live":
+                    live()
+                else:
+                    {k: v.cpu() for k, v in fn(*inputs, u).items()}
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+        emit("serving_export", obj=obj, gpu=gpu_line,
+             artifact_bytes=len(blob), export_s=export_s, load_s=load_s,
+             cpu_export_s=cpu_export_s, cpu_artifact_bytes=len(cpu_blob),
+             graph=graph_nodes(blob), launches=counts,
+             expected_launches=ONLINE_LAUNCHES, vs_live=vs_live,
+             cpu_export_on_card=vs_card,
+             request_ms={k: float(np.median(v)) for k, v in ms.items()},
+             request_ms_all=ms, host_reads=reads,
+             host_reads_total={k: sum(v.values()) for k, v in reads.items()},
+             timing="host clock around a synchronised call, median of 5 "
+                    "in turns; live = Predictor.predict from numpy, "
+                    "artifact = device inputs, outputs read to the host")
+        if {k: counts[k] for k in ONLINE_LAUNCHES} != ONLINE_LAUNCHES:
+            raise AssertionError(f"artifact launches {counts}, expected "
+                                 f"{ONLINE_LAUNCHES}")
+
+    objs = [str(f["obj"]) for f in frames]
+    res = subprocess.run([sys.executable, "-c", REPLAY, str(SERVE_DIR),
+                          *objs], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT)})
+    if res.returncode != 0:
+        raise AssertionError(f"artifact replay process failed:\n{res.stderr}")
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    bad = [m for m in rep["modules"] if m.split(".")[0] != "pose6d_tpu_torch"
+           or m.split(".")[1:2] in (["models"], ["api"], ["solvers"],
+                                    ["spectral"], ["train"], ["data"])]
+    equal = {}
+    for obj in objs:
+        replay = torch.load(SERVE_DIR / f"replay_{obj}.pt")
+        equal[obj] = all(np.array_equal(replay[k].numpy(), arts[obj][k])
+                         for k in serving.OUTPUTS)
+    emit("serving_replay_process", gpu=gpu_line, modules=rep["modules"],
+         launches=rep["launches"], bit_equal_to_artifact=equal)
+    if bad or not all(equal.values()):
+        raise AssertionError(f"replay process: modules {bad}, equal {equal}")
+    missing = [k for k in PATH_KERNELS["export"] if not rep["launches"][k]]
+    if missing:
+        raise AssertionError(f"replay process launched no {missing}")
+    return total
 
 
 def cpu_copy(model):
@@ -3779,6 +4044,7 @@ def main() -> int:
     online_cpu_agreement(online, model, pred, draws, results, stages)
     online_grouped_fps(online, model, stages, gpu_line)
     disambiguation_batch(online, model, pred, stages, dev, gpu_line)
+    paths_export = serving_export(online, model, pred, draws, gpu_line)
 
     frames = load_frames()
     emit("frames", objects=[f["obj"] for f in frames],
@@ -3787,7 +4053,8 @@ def main() -> int:
          operators_s=[f["ops_s"] for f in frames],
          note="the PLYs carry no faces: the CAD operators are point-cloud "
               "operators too (k_eig 64)")
-    paths = {"online": paths_online, "serve": serve(frames, model, dev)}
+    paths = {"online": paths_online, "export": paths_export,
+             "serve": serve(frames, model, dev)}
     batch_throughput(frames, model, dev, gpu_line)
     paths["pc_major_filter"] = pc_major_filter(frames, model, dev, gpu_line)
     items = training_items(frames)

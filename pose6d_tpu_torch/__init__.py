@@ -6,6 +6,8 @@ unless the caller passes ``device="cpu"``: ``api.Predictor.predict``
 (the online mode: depth frame -> on-device cloud and spectral operators
 -> DPFMNet -> filter -> RANSAC -> ICP -> flip disambiguation),
 ``api.Predictor.predict_with_operators`` (the cached mode),
+``serving.export_predictor`` / ``serving.load_exported`` (the online
+frame as one torch.export artifact),
 ``train.loop.train``, ``train.eval_loop.evaluate`` and the command-line
 workflow (``python -m pose6d_tpu_torch.cli.<name>``: gen_shapes,
 synth_data, generate_cache, train, eval, pose, ir_extraction). The hot

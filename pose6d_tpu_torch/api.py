@@ -12,9 +12,11 @@ online mode: per instance, the depth frame is backprojected, cleaned of
 outliers and farthest-point sampled, its spectral operators are computed
 on the device (graph Laplacian and LOBPCG), and DPFMNet -> spatial
 filter -> RANSAC -> cloud-to-model ICP -> depth-consistency flip
-disambiguation give the pose. predict_with_operators() is the cached
-mode: the partial cloud's operators come precomputed from the host, and
-the pose is not disambiguated (there is no depth image).
+disambiguation give the pose. One instance is one call of _frame, the
+function that serving.export_predictor also traces into its artifact.
+predict_with_operators() is the cached mode: the partial cloud's
+operators come precomputed from the host, and the pose is not
+disambiguated (there is no depth image).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from .ops.symmetry import disambiguation_bank
 from .runtime import resolve_device
 from .solvers.candidates import HYP_BLOCK, candidate_select_pose
 from .solvers.multistart import disambiguate_pose_depth
-from .spectral.device_lbo import device_pc_operators
+from .spectral import device_lbo
 
 MAX_RAW = 16384   # backprojected points kept per instance
 _NO_GRAD = ("a gradient-feature model (with_gradient_features) needs the "
@@ -126,6 +128,9 @@ class Predictor:
         self._sel_margin = select_margin
         self._sel_trigger = select_trigger
         self._fps_groups = fps_groups
+        # LOBPCG's start block, drawn once (device_lbo.default_x0)
+        self._x0 = (device_lbo.default_x0(v_pc, model.cfg.k_eig, self.device)
+                    if mode == "online" else None)
 
     # -- stages -------------------------------------------------------------
     def _cloud_from_depth(self, depth, K, cam_scale, mask):
@@ -147,18 +152,28 @@ class Predictor:
         return (torch.nn.functional.pad(pc, (0, 0, 0, pad))[:, :self.v_pc],
                 torch.nn.functional.pad(sel_valid, (0, pad))[:, :self.v_pc])
 
-    def _operators(self, pc_xyz, pc_valid) -> dict:
-        mass, evals, evecs = device_pc_operators(
+    def _operators(self, pc_xyz, pc_valid, x0=None) -> dict:
+        mass, evals, evecs = device_lbo.device_pc_operators(
             pc_xyz, pc_valid, k_eig=self.model.cfg.k_eig,
-            iters=self._lobpcg_iters)
+            iters=self._lobpcg_iters, x0=x0)
         return {"xyz": pc_xyz, "mass": mass, "evals": evals,
                 "evecs": evecs, "valid": pc_valid}
 
-    def _pose_from_cloud(self, obj: int, pc: dict, K, obs_z, mask,
+    def _object(self, obj: int) -> dict:
+        """What a frame of object `obj` reads besides its inputs: the
+        padded CAD operators (1, ...), the diameter (1,), the flip bank
+        (1, H, 3, 3) when disambiguating, and LOBPCG's start block."""
+        state = {"cad": {k: v[None] for k, v in self.cad_bank[obj].items()},
+                 "diam": torch.tensor([self._diam[obj]], dtype=torch.float32,
+                                      device=self.device),
+                 "x0": self._x0}
+        if self.disambiguate:
+            state["sym_rots"] = self._sym_rots[obj][None]
+        return state
+
+    def _pose_from_cloud(self, state: dict, pc: dict, K, obs_z, mask,
                          generator=None, uniforms=None) -> dict:
-        cad = {k: v[None] for k, v in self.cad_bank[obj].items()}
-        diam = torch.tensor([self._diam[obj]], dtype=torch.float32,
-                            device=self.device)
+        cad, diam = state["cad"], state["diam"]
         if self._tta > 1 or self._zk:
             out = candidate_select_pose(
                 self.model, cad, pc, diam, n_fmap=self.model.cfg.n_fmap,
@@ -175,11 +190,29 @@ class Predictor:
         if self.disambiguate:
             fix = disambiguate_pose_depth(
                 cad["xyz"], cad["valid"], pc["xyz"], pc["valid"], out["R"],
-                out["t"], diam, K, obs_z, mask,
-                sym_rots=self._sym_rots[obj][None])
+                out["t"], diam, K, obs_z, mask, sym_rots=state["sym_rots"])
             out.update(R=fix["R"], t=fix["t"],
                        flip_hypothesis=fix["hypothesis"])
         return out
+
+    def _frame(self, state: dict, depth, K, cam_scale, mask, uniforms=None,
+               generator=None) -> dict:
+        """One instance of one depth frame, on the device: depth (H, W) f32
+        raw BOP units, K (3, 3) f32, cam_scale () f32 (1000 /
+        depth_scale), mask (H, W) bool; uniforms (n_blocks, HYP_BLOCK, 3)
+        RANSAC draws in [0, 1), or None to draw from `generator`; state
+        from _object. Returns the pose dict with a leading batch of 1
+        (R, t, n_inliers, icp_rmse, overlap21, flip_hypothesis and the
+        stage outputs beside them). The live request and the exported
+        artifact both run this function."""
+        depth, K, mask = depth[None], K[None], mask[None]
+        pc_xyz, pc_valid = self._cloud_from_depth(depth, K, cam_scale, mask)
+        pc = self._operators(pc_xyz, pc_valid, state["x0"])
+        # observed depth in pipeline units (cm) for pose verification
+        obs_z = depth * (100.0 / cam_scale)
+        return self._pose_from_cloud(
+            state, pc, K, obs_z, mask, generator=generator,
+            uniforms=None if uniforms is None else uniforms[None])
 
     # -- public -------------------------------------------------------------
     def predict(self, depth, K, depth_scale, masks, obj_ids, seed: int = 0,
@@ -195,24 +228,19 @@ class Predictor:
         if self.mode != "online":
             raise ValueError("cached mode: use predict_with_operators")
         dev = self.device
-        cam_scale = 1000.0 / depth_scale
-        depth = torch.as_tensor(np.asarray(depth, np.float32),
-                                device=dev)[None]
-        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)[None]
-        # observed depth in pipeline units (cm) for pose verification
-        obs_z = depth * (100.0 / cam_scale)
+        cam_scale = torch.tensor(1000.0 / depth_scale, dtype=torch.float32,
+                                 device=dev)
+        depth = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
+        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         results = []
         for i, (mask, obj_id) in enumerate(zip(masks, obj_ids)):
-            m = torch.as_tensor(np.asarray(mask, bool), device=dev)[None]
+            m = torch.as_tensor(np.asarray(mask, bool), device=dev)
             u = None if uniforms is None else torch.as_tensor(
-                uniforms[i], device=dev)[None]
+                uniforms[i], device=dev)
             with torch.inference_mode():
-                pc_xyz, pc_valid = self._cloud_from_depth(depth, K, cam_scale,
-                                                          m)
-                pc = self._operators(pc_xyz, pc_valid)
-                out = self._pose_from_cloud(int(obj_id), pc, K, obs_z, m,
-                                            generator=gen, uniforms=u)
+                out = self._frame(self._object(int(obj_id)), depth, K,
+                                  cam_scale, m, u, generator=gen)
             results.append({k: v[0].cpu().numpy() for k, v in out.items()})
         return results
 

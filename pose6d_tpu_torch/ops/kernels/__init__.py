@@ -1,4 +1,8 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Importing this package registers the kernels as torch.library ops of the
+pose6d_tpu_torch namespace (torch.ops.pose6d_tpu_torch.<name>), which an
+exported artifact (serving.py) calls."""
 from ._build import LAUNCHES, build_all, reset_launches
 from .attention import (flash_cross_attention,
                         flash_cross_attention_backward,

@@ -5,8 +5,9 @@ into ``build/pose6d_tpu_torch_kernels/`` at the repository root, for
 ``sm_90a``, as a shared library with a plain C interface. The library
 name carries a hash of the source, so an edited source is rebuilt and
 an unchanged one is reused. Nothing here runs at import time: a host
-without CUDA never reaches the build (the wrappers take their plain
-versions for CPU tensors before they ask for a library).
+without CUDA never reaches the build (each op's CPU implementation is
+its plain version, and only its CUDA implementation asks for a
+library).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises if that is not 0.

@@ -4,15 +4,16 @@ backward's products on the tensor cores in 3xTF32).
 
 Port of pose6d_tpu/ops/pallas/attention.py:30 flash_cross_attention
 and of the fused backward that JAX's library flash attention brings
-with it. For CUDA tensors the forward and the backward are hand-written
-kernels, joined by a torch.autograd.Function: the forward saves the
-per-(query, head) log-sum-exp and the backward recomputes the
-probabilities from it. The log-sum-exp is asked for only when autograd
-will need it (grad mode on and an input that requires grad); serving,
-under inference_mode, never computes it. For CPU tensors both run the
-plain PyTorch version (the XLA branch of
-pose6d_tpu/models/attention.py:108-117, kept in f32: the port rounds
-nothing to bf16) and autograd through it.
+with it. Both are torch.library ops (pose6d_tpu_torch::
+flash_cross_attention, ::flash_cross_attention_backward), joined by a
+torch.autograd.Function: the forward saves the per-(query, head)
+log-sum-exp and the backward recomputes the probabilities from it. The
+log-sum-exp is asked for only when autograd will need it (grad mode on
+and an input that requires grad); serving never computes it. The
+dispatcher runs the hand-written kernels on CUDA tensors and the plain
+PyTorch versions on CPU tensors: the XLA branch of
+pose6d_tpu/models/attention.py:108-117, kept in f32 (the port rounds
+nothing to bf16), and autograd through it.
 
 Head dims: 16 (every configuration's attention_type="normal" refiner,
 gnn_dim / heads) and 32 (attention_type="double", (gnn_dim +
@@ -24,6 +25,8 @@ input and output), so a thread keeps as many q and accumulator floats
 as at the default 16 x 2.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -129,13 +132,36 @@ def flash_cross_attention_plain(q, k, v, kv_valid, sm_scale: float):
     return torch.einsum("bhnm,bmdh->bndh", prob, v)
 
 
+def flash_cross_attention_lse_plain(q, k, kv_valid, sm_scale: float):
+    """The forward's log-sum-exp (B, N, H) of the scaled scores over the
+    valid keys; -inf for a query with none, as the kernel writes it."""
+    scores = torch.einsum("bndh,bmdh->bnhm", q, k) * sm_scale
+    scores = torch.where(kv_valid[:, None, None, :], scores, -torch.inf)
+    return torch.logsumexp(scores, dim=-1)
+
+
 def flash_cross_attention_backward_plain(q, k, v, kv_valid, sm_scale: float,
                                          dout):
-    """(dq, dk, dv): autograd through the plain version."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_cross_attention_plain(*leaves, kv_valid, sm_scale)
-        return torch.autograd.grad(out, leaves, dout)
+    """(dq, dk, dv): autograd through the plain version. It runs on a
+    thread of its own, whose dispatcher state is fresh: the op's CPU
+    implementation calls it below the autograd dispatch key, where the
+    calling thread records no graph."""
+    result = {}
+
+    def run():
+        try:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_cross_attention_plain(*leaves, kv_valid, sm_scale)
+            result["grads"] = torch.autograd.grad(out, leaves, dout)
+        except Exception as e:     # re-raised on the calling thread
+            result["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "error" in result:
+        raise result["error"]
+    return tuple(result["grads"])
 
 
 def _checked(q, k, v, kv_valid):
@@ -292,24 +318,72 @@ def _backward_kernel(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
     return dq, dk, dv
 
 
+@torch.library.custom_op("pose6d_tpu_torch::flash_cross_attention",
+                         mutates_args=(), device_types="cpu")
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_valid: torch.Tensor, sm_scale: float,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse (B, N, H), or an empty tensor without with_lse). The
+    CPU implementations return contiguous tensors, as the fake ones
+    describe them."""
+    out = flash_cross_attention_plain(q, k, v, kv_valid, sm_scale)
+    out = out.contiguous()
+    if with_lse:
+        return out, flash_cross_attention_lse_plain(q, k, kv_valid, sm_scale)
+    return out, q.new_empty(0)
+
+
+@_forward_op.register_kernel("cuda")
+def _(q, k, v, kv_valid, sm_scale, with_lse):
+    out, lse = _forward_kernel(*_checked(q, k, v, kv_valid), sm_scale,
+                               with_lse)
+    return out, q.new_empty(0) if lse is None else lse
+
+
+@_forward_op.register_fake
+def _(q, k, v, kv_valid, sm_scale, with_lse):
+    lse_shape = (q.shape[0], q.shape[1], q.shape[3]) if with_lse else (0,)
+    return q.new_empty(q.shape), q.new_empty(lse_shape)
+
+
+@torch.library.custom_op("pose6d_tpu_torch::flash_cross_attention_backward",
+                         mutates_args=(), device_types="cpu")
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_valid: torch.Tensor, sm_scale: float,
+                 out: torch.Tensor | None, lse: torch.Tensor | None,
+                 dout: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in flash_cross_attention_backward_plain(
+        q, k, v, kv_valid, sm_scale, dout))
+
+
+@_backward_op.register_kernel("cuda")
+def _(q, k, v, kv_valid, sm_scale, out, lse, dout):
+    if out is None or lse is None:
+        raise ValueError("the backward kernel needs the forward's out and lse")
+    return _backward_kernel(*_checked(q, k, v, kv_valid), sm_scale, out, lse,
+                            dout)
+
+
+@_backward_op.register_fake
+def _(q, k, v, kv_valid, sm_scale, out, lse, dout):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def flash_cross_attention_backward(q, k, v, kv_valid, sm_scale: float, out,
                                    lse, dout):
     """(dq, dk, dv) of the attention for the upstream gradient dout
     (B, N, dim, H), given the forward's out and lse (B, N, H). CPU
     tensors take the plain version (out and lse are not needed)."""
-    if q.device.type == "cpu":
-        return flash_cross_attention_backward_plain(q, k, v, kv_valid,
-                                                    sm_scale, dout)
-    return _backward_kernel(*_checked(q, k, v, kv_valid), sm_scale, out, lse,
-                            dout)
+    return _backward_op(q, k, v, kv_valid, sm_scale, out, lse, dout)
 
 
 class _FlashCrossAttention(torch.autograd.Function):
-    """The two kernels as one differentiable op (CUDA only)."""
+    """The two ops as one differentiable function."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, sm_scale):
-        out, lse = _forward_kernel(q, k, v, kv_valid, sm_scale, True)
+        out, lse = _forward_op(q, k, v, kv_valid, sm_scale, True)
         ctx.save_for_backward(q, k, v, kv_valid, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -327,9 +401,6 @@ def flash_cross_attention(q, k, v, kv_valid, sm_scale: float):
     """q (B, N, dim, H), k/v (B, M, dim, H) in the refiner's (dim, heads)
     split, kv_valid (B, M) bool; returns (B, N, dim, H). A query with no
     valid key gets zeros. Differentiable in q, k, v on both devices."""
-    if q.device.type == "cpu":
-        return flash_cross_attention_plain(q, k, v, kv_valid, sm_scale)
-    q, k, v, kv_valid = _checked(q, k, v, kv_valid)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashCrossAttention.apply(q, k, v, kv_valid, sm_scale)
-    return _forward_kernel(q, k, v, kv_valid, sm_scale, False)[0]
+    return _forward_op(q, k, v, kv_valid, sm_scale, False)[0]

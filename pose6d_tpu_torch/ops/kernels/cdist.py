@@ -1,9 +1,12 @@
 """Fused masked cdist -> argmin / top-k (kernel: csrc/masked_cdist.cu).
 
 Port of pose6d_tpu/ops/pallas/cdist.py (masked_argmin_cdist :40,
-masked_topk_cdist :99). For a CUDA tensor the wrapper launches the
-hand-written kernel; for a CPU tensor it runs the plain PyTorch version
-beside it, which reproduces the JAX package's XLA path
+masked_topk_cdist :99). Each is a torch.library op
+(pose6d_tpu_torch::masked_topk_cdist, ::masked_argmin_cdist), so the
+dispatcher picks the implementation from the tensors' device at run
+time and torch.export records the op as one node: on CUDA tensors the
+hand-written kernel, on CPU tensors the plain PyTorch version beside
+it, which reproduces the JAX package's XLA path
 (pose6d_tpu/ops/nn.py:33-82) exactly: up to k = 8 the k-pass, which
 returns the duplicate (1e9, column 0) once a row's valid columns run
 out; above 8 lax.top_k, which returns the masked columns there, lowest
@@ -132,26 +135,55 @@ def _top_k_fill(d2, idx, b_valid):
     return torch.where(slot >= 0, fill.to(torch.int32), idx)
 
 
-def masked_topk_cdist(a, b, b_valid, k: int = 5):
-    """k smallest masked ||a_i - b_j||^2 per row, ascending, ties to the
-    lower index. a (B, N, C), b (B, M, C), b_valid (B, M) bool.
-    Returns (d2 (B, N, k), idx (B, N, k) int32). The card takes
-    k <= 16."""
-    if a.device.type == "cpu":
-        return masked_topk_cdist_plain(a, b, b_valid, k)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
+@torch.library.custom_op("pose6d_tpu_torch::masked_topk_cdist",
+                         mutates_args=(), device_types="cpu")
+def _topk_op(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+             k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous()
+                 for t in masked_topk_cdist_plain(a, b, b_valid, k))
+
+
+@_topk_op.register_kernel("cuda")
+def _(a, b, b_valid, k):
     out = _launch(a, b, b_valid, k)
     _build.LAUNCHES["masked_topk_cdist"] += 1
     return out
 
 
-def masked_argmin_cdist(a, b, b_valid):
-    """Masked nearest neighbour: (d2_min (B, N), idx (B, N) int32)."""
-    if a.device.type == "cpu":
-        return masked_argmin_cdist_plain(a, b, b_valid)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
+@_topk_op.register_fake
+def _(a, b, b_valid, k):
+    shape = (*a.shape[:-1], k)
+    return a.new_empty(shape), a.new_empty(shape, dtype=torch.int32)
+
+
+@torch.library.custom_op("pose6d_tpu_torch::masked_argmin_cdist",
+                         mutates_args=(), device_types="cpu")
+def _argmin_op(a: torch.Tensor, b: torch.Tensor,
+               b_valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return masked_argmin_cdist_plain(a, b, b_valid)
+
+
+@_argmin_op.register_kernel("cuda")
+def _(a, b, b_valid):
     out = _launch(a, b, b_valid, 1, squeeze=True)
     _build.LAUNCHES["masked_argmin_cdist"] += 1
     return out
+
+
+@_argmin_op.register_fake
+def _(a, b, b_valid):
+    shape = a.shape[:-1]
+    return a.new_empty(shape), a.new_empty(shape, dtype=torch.int32)
+
+
+def masked_topk_cdist(a, b, b_valid, k: int = 5):
+    """k smallest masked ||a_i - b_j||^2 per row, ascending, ties to the
+    lower index. a (B, N, C), b (B, M, C), b_valid (B, M) bool.
+    Returns (d2 (B, N, k), idx (B, N, k) int32). The card takes
+    k <= 16."""
+    return _topk_op(a, b, b_valid, k)
+
+
+def masked_argmin_cdist(a, b, b_valid):
+    """Masked nearest neighbour: (d2_min (B, N), idx (B, N) int32)."""
+    return _argmin_op(a, b, b_valid)

@@ -4,8 +4,9 @@ csrc/masked_consistency_sum.cu).
 Ports of pose6d_tpu/ops/pallas/consistency.py:80
 consistency_sum_rank_major (the PC side read from a (V2, V2) table)
 and :136 masked_consistency_sum (both endpoints explicit, PC-major).
-For a CUDA tensor each wrapper launches its hand-written kernel; for a
-CPU tensor it runs the plain PyTorch version beside it.
+Each is a torch.library op (pose6d_tpu_torch::consistency_sum_rank_major,
+::masked_consistency_sum): the dispatcher runs the hand-written kernel on
+CUDA tensors and the plain PyTorch version beside it on CPU tensors.
 """
 from __future__ import annotations
 
@@ -85,14 +86,8 @@ def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
     return torch.stack(out)
 
 
-def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
-    """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
-    (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
-    Returns (B, P) f32 sums. The card takes k = 1 to 16."""
-    if coords_cad.device.type == "cpu":
-        return consistency_sum_rank_major_plain(coords_cad, dpc, w, v2)
-    if coords_cad.device.type != "cuda":
-        raise ValueError(f"unsupported device {coords_cad.device}")
+def _rank_major_launch(coords_cad, dpc, w, v2: int):
+    """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
     bsz, p, c = coords_cad.shape
     if c != 3 or v2 < 1 or p % v2:
         raise ValueError(f"kernel takes (B, k * v2, 3): "
@@ -136,13 +131,8 @@ def masked_consistency_sum_plain(ca, cb, w):
     return torch.stack(out)
 
 
-def masked_consistency_sum(ca, cb, w):
-    """ca, cb (B, P, 3) f32 CAD / PC endpoints of P pairs, w (B, P) f32
-    row weights (0 for pruned rows). Returns (B, P) f32 sums."""
-    if ca.device.type == "cpu":
-        return masked_consistency_sum_plain(ca, cb, w)
-    if ca.device.type != "cuda":
-        raise ValueError(f"unsupported device {ca.device}")
+def _pc_major_launch(ca, cb, w):
+    """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
     bsz, p, c = ca.shape
     if c != 3 or cb.shape != ca.shape or w.shape != (bsz, p) or p == 0:
         raise ValueError(f"bad shapes ca{tuple(ca.shape)} cb{tuple(cb.shape)} "
@@ -168,3 +158,46 @@ def masked_consistency_sum(ca, cb, w):
     _build.check(code, "masked_consistency_sum")
     _build.LAUNCHES["masked_consistency_sum"] += 1
     return out
+
+
+@torch.library.custom_op("pose6d_tpu_torch::consistency_sum_rank_major",
+                         mutates_args=(), device_types="cpu")
+def _rank_major_op(coords_cad: torch.Tensor, dpc: torch.Tensor,
+                   w: torch.Tensor, v2: int) -> torch.Tensor:
+    return consistency_sum_rank_major_plain(coords_cad, dpc, w, v2)
+
+
+_rank_major_op.register_kernel("cuda")(_rank_major_launch)
+
+
+@_rank_major_op.register_fake
+def _(coords_cad, dpc, w, v2):
+    return w.new_empty(w.shape)
+
+
+@torch.library.custom_op("pose6d_tpu_torch::masked_consistency_sum",
+                         mutates_args=(), device_types="cpu")
+def _pc_major_op(ca: torch.Tensor, cb: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    return masked_consistency_sum_plain(ca, cb, w)
+
+
+_pc_major_op.register_kernel("cuda")(_pc_major_launch)
+
+
+@_pc_major_op.register_fake
+def _(ca, cb, w):
+    return w.new_empty(w.shape)
+
+
+def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
+    """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
+    (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
+    Returns (B, P) f32 sums. The card takes k = 1 to 16."""
+    return _rank_major_op(coords_cad, dpc, w, v2)
+
+
+def masked_consistency_sum(ca, cb, w):
+    """ca, cb (B, P, 3) f32 CAD / PC endpoints of P pairs, w (B, P) f32
+    row weights (0 for pruned rows). Returns (B, P) f32 sums."""
+    return _pc_major_op(ca, cb, w)

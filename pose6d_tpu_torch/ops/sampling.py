@@ -1,16 +1,18 @@
 """Farthest point sampling and kNN (port of pose6d_tpu/ops/sampling.py).
 
 FPS is a chain of n_samples - 1 dependent argmax steps over the running
-min-distance field; here a Python loop whose pick index stays on the
-device, so the chain issues its launches without a host sync. Grouped
-FPS splits the valid points into `groups` strata and runs their chains
-as one batched chain of n_samples / groups steps.
+min-distance field: one out-of-place step driven by ops/loops.run_while
+(a Python loop eagerly, the while_loop op under torch.export, as
+lax.fori_loop in the JAX package), whose pick indices stay on the
+device. Grouped FPS splits the valid points into `groups` strata and
+runs their chains as one batched chain of n_samples / groups steps.
 """
 from __future__ import annotations
 
 import torch
 
 from .geometry import fma_f32, pairwise_sqdist_fma
+from .loops import run_while
 from .masking import BIG
 
 def farthest_point_sample(points, valid, n_samples: int):
@@ -25,18 +27,31 @@ def farthest_point_sample(points, valid, n_samples: int):
     bsz, n, _ = points.shape
     dev = points.device
     points = points.float()
-    idx = torch.zeros((bsz, n_samples), dtype=torch.int64, device=dev)
-    idx[:, 0] = torch.argmax(valid.to(torch.uint8), dim=-1)
+    first = torch.argmax(valid.to(torch.uint8), dim=-1)
+    idx = torch.cat([first[:, None], torch.zeros(
+        (bsz, n_samples - 1), dtype=torch.int64, device=dev)], dim=1)
     min_d = torch.full((bsz, n), BIG, dtype=torch.float32, device=dev)
     neg = torch.full_like(min_d, -BIG)
-    for i in range(1, n_samples):
-        last = torch.gather(points, 1, idx[:, i - 1, None, None].expand(
-            -1, 1, 3))
+
+    def more(i, idx, min_d, last):
+        return i < n_samples
+
+    def step(i, idx, min_d, last):
+        diff = points - torch.gather(points, 1,
+                                     last[:, None, None].expand(-1, 1, 3))
         # the fused multiply-adds of the JAX package's jitted reduction
-        d0, d1, d2 = (points - last).unbind(-1)
-        d = fma_f32(d2, d2, fma_f32(d1, d1, d0 * d0))
-        torch.minimum(min_d, d, out=min_d)
-        idx[:, i] = torch.argmax(torch.where(valid, min_d, neg), dim=-1)
+        # (fma_f32 on operands widened once: the same bits)
+        wide = diff.double()
+        d = fma_f32(wide[..., 2], wide[..., 2], fma_f32(
+            wide[..., 1], wide[..., 1], diff[..., 0] * diff[..., 0]))
+        min_d = torch.minimum(min_d, d)
+        pick = torch.argmax(torch.where(valid, min_d, neg), dim=-1)
+        return (i + 1, idx.index_copy(1, i.reshape(1), pick[:, None]), min_d,
+                pick)
+
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    _, idx, _, _ = run_while(more, step, (one, idx, min_d, first),
+                             steps=n_samples - 1)
     n_valid = valid.sum(-1, keepdim=True)
     sel_valid = torch.arange(n_samples, device=dev)[None] < n_valid
     return idx, sel_valid

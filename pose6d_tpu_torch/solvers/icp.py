@@ -2,12 +2,14 @@
 
 Each iteration pairs every transformed source point with its nearest
 valid target point (the masked argmin kernel on the card) and takes a
-distance-gated Kabsch update. The iteration count is fixed.
+distance-gated Kabsch update. The iteration count is fixed: a Python
+loop eagerly, one while_loop node under torch.export.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.loops import run_while
 from ..ops.nn import nearest_valid
 from .kabsch import kabsch_umeyama
 
@@ -40,23 +42,30 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
         w = (src_valid & (dmin < gate)).float()
         return j, w, dmin
 
-    def step(R, t, tg, tv):
-        j, w, _ = nn_pairs(R, t, tg, tv)
-        ok = (w.sum(-1) >= 3)
-        R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
-        return (torch.where(ok[:, None, None], R2, R),
-                torch.where(ok[:, None], t2, t))
+    def iterate(R, t, tg, tv, n: int):
+        """n iterations against (tg, tv): a fixed-count loop
+        (ops/loops.run_while, a while_loop under torch.export)."""
+        def step(i, R, t):
+            j, w, _ = nn_pairs(R, t, tg, tv)
+            ok = (w.sum(-1) >= 3)
+            R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
+            return (i + 1, torch.where(ok[:, None, None], R2, R),
+                    torch.where(ok[:, None], t2, t))
 
-    R, t = R0.float(), t0.float()
+        _, R, t = run_while(lambda i, R, t: i < n, step,
+                            (torch.zeros((), dtype=torch.int64,
+                                         device=src.device), R, t), steps=n)
+        return R, t
+
+    # contiguous, as every iteration's output is
+    R, t = R0.float().contiguous(), t0.float().contiguous()
     n_fine = max_iter if coarse_stride <= 1 else min(fine_iters, max_iter)
     n_coarse = max_iter - n_fine
     if n_coarse > 0:
-        tg_c = tgt[:, ::coarse_stride].contiguous()
-        tv_c = tgt_valid[:, ::coarse_stride].contiguous()
-        for _ in range(n_coarse):
-            R, t = step(R, t, tg_c, tv_c)
-    for _ in range(n_fine):
-        R, t = step(R, t, tgt, tgt_valid)
+        R, t = iterate(R, t, tgt[:, ::coarse_stride].contiguous(),
+                       tgt_valid[:, ::coarse_stride].contiguous(), n_coarse)
+    if n_fine > 0:
+        R, t = iterate(R, t, tgt, tgt_valid, n_fine)
     _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
     n_corr = w.sum(-1)
     rmse = torch.sqrt((dmin * w).sum(-1) / torch.clamp(n_corr, min=1.0))

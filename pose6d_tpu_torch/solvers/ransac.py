@@ -7,7 +7,10 @@ once its best hypothesis's inlier ratio eps meets the trial bound
 T(eps) = log(1 - confidence) / log(1 - eps^s), s the sample size, or
 when the budget is spent. Frames of a batch exit independently: a frame that has met its
 bound keeps its best hypothesis while the others go on (as jax.vmap over
-lax.while_loop does). Two least-squares refits on the inliers follow.
+lax.while_loop does). The block loop is one out-of-place step driven by
+ops/loops.run_while, so torch.export traces it as a while_loop whose
+exit is that adaptive one. Two least-squares refits on the inliers
+follow.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 
 import torch
 
+from ..ops.loops import run_while
 from .kabsch import kabsch_umeyama, transform_residuals, triad_rigid
 
 CONFIDENCE = 0.999   # success confidence of the early-exit bound
@@ -85,27 +89,36 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
         ar = torch.arange(bsz, device=dev)
         return Rs[ar, b], ts[ar, b], counts[ar, b]
 
-    R = torch.eye(3, device=dev).expand(bsz, 3, 3).clone()
-    t = torch.zeros((bsz, 3), device=dev)
-    best = torch.zeros(bsz, device=dev)
-    done = torch.zeros(bsz, dtype=torch.int64, device=dev)
-    for blk in range(n_blocks):
-        active = (done < n_blocks) & (
-            done * hyp_block < _required_trials(best, n_valid,
-                                                sample_size))
-        if not bool(active.any()):
-            break
+    if uniforms is not None:
+        uniforms = uniforms.to(device=dev, dtype=torch.float32)
+
+    def draw(blk):
         if uniforms is not None:
-            u = uniforms[:, blk].to(device=dev, dtype=torch.float32)
-        else:
-            u = torch.rand((bsz, hyp_block, sample_size),
-                           generator=generator, device=dev)
-        Rb, tb, cb = run_block(u)
+            return uniforms.index_select(1, blk.reshape(1))[:, 0]
+        return torch.rand((bsz, hyp_block, sample_size),
+                          generator=generator, device=dev)
+
+    def active_of(best, done):
+        return (done < n_blocks) & (
+            done * hyp_block < _required_trials(best, n_valid, sample_size))
+
+    def more(blk, R, t, best, done):
+        return (blk < n_blocks) & active_of(best, done).any()
+
+    def step(blk, R, t, best, done):
+        active = active_of(best, done)
+        Rb, tb, cb = run_block(draw(blk))
         better = active & (cb > best)
         R = torch.where(better[:, None, None], Rb, R)
         t = torch.where(better[:, None], tb, t)
         best = torch.where(active, torch.maximum(best, cb), best)
-        done = done + active.to(torch.int64)
+        return blk + 1, R, t, best, done + active.to(torch.int64)
+
+    _, R, t, _, done = run_while(more, step, (
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.eye(3, device=dev).expand(bsz, 3, 3).clone(),
+        torch.zeros((bsz, 3), device=dev), torch.zeros(bsz, device=dev),
+        torch.zeros(bsz, dtype=torch.int64, device=dev)))
 
     # local refinement: least-squares refit on the inlier set, iterated
     for _ in range(REFIT_ROUNDS):

@@ -61,7 +61,7 @@ def lobpcg_smallest(L, mass, valid, k_eig: int = 64, iters: int = 80,
     shifted spectrum. x0 (V, k_eig) or (B, V, k_eig), optional: the
     start block (default_x0 otherwise). Returns evals (B, k_eig)
     ascending, evecs (B, V, k_eig) M-orthonormal and zero on padding,
-    and the iteration count of each frame (a list)."""
+    and the iteration count of each frame (a list of 0-d tensors)."""
     bsz, v, _ = L.shape
     dev = L.device
     if x0 is None:

@@ -10,13 +10,18 @@ extension for the first P, and the stop rule `i < m and converged < k`
 with JAX's self-consistency tolerance. torch.lobpcg is a different
 algorithm and is not used.
 
-Everything runs on the device of the inputs. The stop rule reads the
-converged count on the host once per iteration, and torch.linalg.eigh
-on CUDA waits for its own error check, so each iteration syncs.
+Everything runs on the device of the inputs. An iteration is one
+out-of-place step driven by ops/loops.run_while (a Python loop eagerly,
+the while_loop op under torch.export, as lax.while_loop in JAX): the
+stop rule reads the converged count on the host once per iteration, and
+torch.linalg.eigh on CUDA waits for its own error check, so each
+iteration syncs.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.loops import run_while
 
 
 def _norms(x):
@@ -87,7 +92,8 @@ def _extend_basis(x, m: int):
 def lobpcg_standard(a, x, m: int = 100, tol: float | None = None):
     """Top-k eigenpairs of the symmetric (n, n) matrix `a` from the (n, k)
     start block `x` (orthonormalized here; k * 5 < n). At most m
-    iterations. Returns (theta (k,) descending, U (n, k), iterations)."""
+    iterations. Returns (theta (k,) descending, U (n, k), the
+    iteration count as a 0-d int64 tensor)."""
     n, k = x.shape
     if k == 0 or k * 5 >= n:
         raise ValueError(f"need 0 < 5 k < n, got k = {k}, n = {n}")
@@ -98,8 +104,11 @@ def lobpcg_standard(a, x, m: int = 100, tol: float | None = None):
     ax = a @ x
     theta = torch.sum(x * ax, dim=0, keepdim=True)
     r = ax - theta * x
-    i, converged = 0, 0
-    while i < m and converged < k:
+
+    def more(i, converged, theta, x, p, r):
+        return (i < m) & (converged < k)
+
+    def step(i, converged, theta, x, p, r):
         r = _project_out(torch.cat([x, p], dim=1), r)
         xpr = torch.cat([x, p, r], dim=1)
         theta, q = _rayleigh_ritz_orth(a, xpr)
@@ -115,7 +124,9 @@ def lobpcg_standard(a, x, m: int = 100, tol: float | None = None):
         r = ax - theta[None, :k] * x
         resid = torch.linalg.vector_norm(r, dim=0)
         reltol = (torch.linalg.vector_norm(ax, dim=0) + theta[:k]) * n * 10
-        converged = int((resid < tol * reltol).sum())
-        theta = theta[None, :k]
-        i += 1
+        converged = (resid < tol * reltol).sum()
+        return i + 1, converged, theta[:k][None], x, p, r
+
+    zero = torch.zeros((), dtype=torch.int64, device=x.device)
+    i, _, theta, x, _, _ = run_while(more, step, (zero, zero, theta, x, p, r))
     return theta[0], x, i
