@@ -8,7 +8,9 @@ unless the caller passes ``device="cpu"``: ``api.Predictor.predict``
 ``api.Predictor.predict_with_operators`` (the cached mode),
 ``serving.export_predictor`` / ``serving.load_exported`` (the online
 frame as one torch.export artifact),
-``train.loop.train``, ``train.eval_loop.evaluate`` and the command-line
+``train.loop.train`` (data-parallel over processes, one per card: see
+``parallel``), ``train.eval_loop.evaluate`` (frame-sharded inside a
+process group) and the command-line
 workflow (``python -m pose6d_tpu_torch.cli.<name>``: gen_shapes,
 synth_data, generate_cache, train, eval, pose, ir_extraction). The hot
 steps of the main path run in hand-written CUDA C++ kernels

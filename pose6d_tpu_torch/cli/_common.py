@@ -4,11 +4,6 @@ from __future__ import annotations
 
 import argparse
 
-_NO_MULTIHOST = ("multi-process runs (--coordinator, --num-processes, "
-                 "--process-id) are not ported yet (ROADMAP.md, modules "
-                 "still to port, item 11): run one process on one card")
-
-
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=description,
@@ -23,21 +18,27 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 
 
 def add_multihost_args(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's multi-host flags: accepted, and refused by load()."""
+    """The multi-process flags: one process per card, joined over
+    torch.distributed (train: data-parallel; eval: frame-sharded)."""
     p.add_argument("--coordinator", default=None,
-                   help="not ported: raises NotImplementedError")
+                   help="host:port of process 0; runs this process as one "
+                        "rank of a process group (nccl with --device cuda, "
+                        "gloo with --device cpu)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="not ported: raises NotImplementedError")
+                   help="processes in the group (with --coordinator)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="not ported: raises NotImplementedError")
+                   help="this process's rank (with --coordinator)")
 
 
 def load(args):
-    """The Config of args.config with args.overrides; raises on a
-    multi-host flag."""
-    if any(getattr(args, k, None) is not None
-           for k in ("coordinator", "num_processes", "process_id")):
-        raise NotImplementedError(_NO_MULTIHOST)
+    """The Config of args.config with args.overrides, after joining the
+    process group that --coordinator names (before anything else)."""
+    if getattr(args, "coordinator", None):
+        from ..parallel import init_multihost
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id,
+                       backend=("nccl" if args.device.startswith("cuda")
+                                else "gloo"))
     from ..config import load_config
     from ..runtime import configure
     configure()

@@ -4,6 +4,10 @@ reference's scripts/eval.py).
     python -m pose6d_tpu_torch.cli.eval --config config/lm_synth.yaml \
         --weights <logdir>/params_latest.msgpack --save-results [--device cpu]
 
+With --coordinator host:port --num-processes N --process-id i, each of
+the N processes evaluates its strided shard of the frames on its card
+and every one prints the IR over all frames.
+
 --weights is a flax msgpack params file (either package writes one) or
 the reference's torch checkpoint weights.pt (read with torch.load,
 tensors only, and mapped by models/port_weights.py).

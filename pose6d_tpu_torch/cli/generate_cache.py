@@ -23,7 +23,6 @@ from ._common import base_parser, load
 
 # default worker count for --device cuda
 CUDA_WORKERS = 4
-_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 _DS = None
 
 
@@ -75,24 +74,14 @@ def main(argv=None) -> int:
     else:
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
-        # spawned workers read their thread counts from the environment
-        # when their BLAS and torch load
-        saved = {k: os.environ.get(k) for k in _THREAD_VARS}
-        os.environ.update({k: str(max(1, cores // workers))
-                           for k in _THREAD_VARS})
-        try:
-            with ProcessPoolExecutor(
-                    max_workers=workers, mp_context=mp.get_context("spawn"),
-                    initializer=_init_worker,
-                    initargs=(cfg, args.eval, args.device)) as ex:
-                errors = [r for r in ex.map(_build_one, range(n),
-                                            chunksize=1) if r is not None]
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+
+        from ..parallel.multihost import worker_threads
+        with worker_threads(workers), ProcessPoolExecutor(
+                max_workers=workers, mp_context=mp.get_context("spawn"),
+                initializer=_init_worker,
+                initargs=(cfg, args.eval, args.device)) as ex:
+            errors = [r for r in ex.map(_build_one, range(n), chunksize=1)
+                      if r is not None]
     seconds = time.perf_counter() - t0
     print(f"done; {len(errors)} failures; {seconds:.1f} s "
           f"({seconds / max(n, 1):.2f} s per sample)")

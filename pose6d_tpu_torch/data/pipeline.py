@@ -112,13 +112,18 @@ def to_device(batch: dict, device) -> dict:
 
 class HostLoader:
     """Shuffling, thread-prefetching loader over a (cad, pc, obj)
-    dataset."""
+    dataset. rows, optional: yield only that slice of each batch (a
+    data-parallel process's share), the very samples the full batch
+    holds there, since each sample depends on (seed, epoch, index)
+    alone."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True,
-                 num_threads: int = 4, prefetch: int = 2, **sample_kw):
+                 num_threads: int = 4, prefetch: int = 2,
+                 rows: slice = slice(None), **sample_kw):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -141,7 +146,7 @@ class HostLoader:
         if self.shuffle:
             rng.shuffle(order)
         batches = [order[b * self.batch_size:(b + 1) * self.batch_size]
-                   for b in range(len(self))]
+                   [self.rows] for b in range(len(self))]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -20,7 +20,7 @@ solver or API module.
     blob = export_predictor(pred, obj_id=5, depth_shape=(480, 640))
     Path("pose_obj5.pt2").write_bytes(blob)
     # ... on the serving host:
-    fn = load_exported(Path("pose_obj5.pt2").read_bytes())
+    fn = load_exported(Path("pose_obj5.pt2").read_bytes())   # on cuda
     u = ransac_uniforms(131072, seed=0, device="cuda")
     out = fn(depth, K, cam_scale, mask, u)    # {"R", "t", ...}
 
@@ -28,7 +28,7 @@ The RANSAC draws are an input (uniforms (n_blocks, block, 3) in [0, 1),
 block = min(HYP_BLOCK, n_hypotheses)), as the JAX artifact takes its
 PRNG key: the same draws give the live request's bits on one device.
 An artifact exported on the CPU runs on the card after
-load_exported(blob, device="cuda"): the ops pick their CUDA kernels
+load_exported(blob) (device="cuda", the default): the ops pick their CUDA kernels
 from the tensors' device at run time, so no backend is pinned at trace
 time (the JAX package's artifact pins its attention path then).
 """
@@ -106,15 +106,18 @@ def export_predictor(pred, obj_id: int, depth_shape: tuple[int, int]) -> bytes:
     return buf.getvalue()
 
 
-def load_exported(blob: bytes, device=None):
+def load_exported(blob: bytes, device="cuda"):
     """The artifact's callable (depth, K, cam_scale, mask, uniforms) ->
-    {"R", "t", ...}. device, optional: move the program's state and the
-    devices its graph names there (an artifact exported on the CPU then
-    runs its kernels on the card)."""
-    program = torch.export.load(io.BytesIO(blob))
-    if device is not None:
-        from torch.export.passes import move_to_device_pass
-        program = move_to_device_pass(program, torch.device(device))
+    {"R", "t", ...} on `device` (the card unless the caller asks for the
+    CPU; raises when CUDA is asked for and missing): the program's state
+    and the devices its graph names move there, so an artifact exported
+    on either device runs on either."""
+    from torch.export.passes import move_to_device_pass
+
+    from .runtime import resolve_device
+    device = resolve_device(device)
+    program = move_to_device_pass(torch.export.load(io.BytesIO(blob)),
+                                  device)
     module = program.module()
 
     def run(depth, K, cam_scale, mask, uniforms) -> dict:

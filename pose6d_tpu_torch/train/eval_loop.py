@@ -10,8 +10,12 @@ sample by depth-render consistency (or spatial-filter survivors).
 
 The dataset is any sequence of (cad_ops, pc_ops, obj) triples (the
 training contract, data/dataset.py), by default the BOP dataset of
-cfg.eval_dataset (build_eval_dataset). One process evaluates every
-frame: the JAX package's multi-host frame sharding is not ported.
+cfg.eval_dataset (build_eval_dataset). Inside a process group each
+process evaluates its strided shard of the frames
+(parallel.shard_frame_list) on its own device, names each result file by
+the frame's global index, and the per-object IR sums are summed across
+processes at the end (parallel.allreduce_metric_sums); without one the
+shard is every frame. The pose stage is not sharded.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from ..data.dataset import dataset_from_config
 from ..data.pipeline import HostLoader, to_device
 from ..models import DPFMNet, load_flax_checkpoint
+from ..parallel.multihost import allreduce_metric_sums, shard_frame_list
 from ..runtime import resolve_device
 from ..solvers.candidates import candidate_maps, select_candidate
 from ..solvers.fmap2pointmap import (naive_fmap2pointmap,
@@ -35,6 +40,20 @@ SELECT_SEED = 7       # the candidate scorer's draws: seeded by (7, index)
 SCORE_HYP_BLOCK = 1024
 MAX_OBJ = 256         # per-object accumulator size
 OUT_KEYS = ("C", "overlap12", "overlap21")   # model outputs kept per sample
+
+
+class _Subset:
+    """Index view over a dataset (this process's shard of the frames)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.indices[i])]
 
 
 def build_eval_dataset(cfg, device="cuda"):
@@ -170,7 +189,8 @@ def _load_model(cfg, model_or_params, dev) -> torch.nn.Module:
 def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
              device="cuda", select_draws=None,
              selection: list | None = None):
-    """Returns (mean_ir, {obj_id: mean_ir}); writes the result npzs to
+    """Returns (mean_ir, {obj_id: mean_ir}) over every process's frames;
+    writes this process's result npzs, result_{global index:06d}.npz, to
     save_dir (or cfg.save_results) when one is set.
 
     model_or_params: a DPFMNet with its weights, or the path of a flax
@@ -179,14 +199,16 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
     build_eval_dataset(cfg) on `device`.
     select_draws(idx, bsz, hyps), optional: the candidate scorer's RANSAC
     draws (B, n_blocks, 1024, 3) for the batch starting at sample idx,
-    in place of select_uniforms. selection, optional: a list that
-    receives per sample {"winner": the winning candidate (0 = the base
+    in place of select_uniforms; idx counts this process's samples (the
+    JAX package keys its draws so too). selection, optional: a list that
+    receives per sample of this process {"winner": the winning candidate (0 = the base
     map), "scores": each candidate's handicapped score, lower wins, or
     None without candidates}.
     """
     dev = resolve_device(device)
     if dataset is None:
         dataset = build_eval_dataset(cfg, device=dev)
+    dataset = _Subset(dataset, shard_frame_list(len(dataset)))
     loader = HostLoader(dataset, cfg.eval.batch_size, shuffle=False,
                         drop_last=False, v_cad=cfg.pad_v_cad,
                         v_pc=cfg.pad_v_pc)
@@ -234,8 +256,9 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
                 ir = float(irs[b])
                 per_obj.setdefault(obj_id, []).append(ir)
                 if save_dir:
-                    _save_result(save_dir / f"result_{idx:06d}.npz", host, b,
-                                 out, pairs[b][:, pvalid[b]], ir, obj_id,
+                    gidx = int(dataset.indices[idx])
+                    _save_result(save_dir / f"result_{gidx:06d}.npz", host,
+                                 b, out, pairs[b][:, pvalid[b]], ir, obj_id,
                                  n_fmap)
                 idx += 1
     if per_obj and max(per_obj) >= MAX_OBJ:
@@ -246,6 +269,8 @@ def evaluate(cfg, model_or_params, dataset=None, save_dir=None,
     for k, v in per_obj.items():
         ir_sum[k] += float(np.sum(v))
         cnt[k] += len(v)
+    agg = allreduce_metric_sums({"ir_sum": ir_sum, "count": cnt})
+    ir_sum, cnt = agg["ir_sum"], agg["count"]
     tot = float(cnt.sum())
     mean_ir = float(ir_sum.sum() / tot) if tot else 0.0
     per_obj_mean = {int(k): float(ir_sum[k] / cnt[k])

@@ -1,4 +1,5 @@
-"""The training loop on one device (port of pose6d_tpu/train/loop.py).
+"""The training loop, on one device or data-parallel over processes
+(port of pose6d_tpu/train/loop.py; parallel/ holds the data axis).
 
 Epoch loop over a HostLoader with the step-decay lr, gradient clip,
 per-step and per-epoch scalars (metrics.jsonl), the optional train-IR
@@ -23,10 +24,12 @@ Without a dataset, train() builds the BOP dataset of cfg.train_datasets
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import dataset_from_config
 from ..data.pipeline import HostLoader, to_device
@@ -35,17 +38,17 @@ from ..models.port_weights import (extend_first_lin_input,
                                    load_reference_checkpoint)
 from ..models.weights import (flax_from_state_dict, read_flax_msgpack,
                               state_dict_from_flax)
+from ..parallel.mesh import (make_mesh, make_parallel_train_step, replicate,
+                             shard_rows)
+from ..parallel.multihost import (all_reduce_sum, broadcast_object,
+                                  in_group, init_group, worker_threads)
 from ..runtime import resolve_device
 from ..solvers import naive_fmap2pointmap
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
                          save_checkpoint, save_params)
 from .logging import MetricsLogger
 from .metrics import inlier_ratio
-from .train_step import TrainStep
-
-_NO_MESH = ("data-parallel training over several GPUs is not ported yet "
-            "(ROADMAP.md, modules still to port, item 11)")
-
+from .train_step import TrainStep, make_optimizer
 
 class ConcatDataset:
     """Several datasets as one (the reference's utils/utils.py)."""
@@ -136,16 +139,115 @@ def resume_offsets(restored_step: int, steps_per_epoch: int, seed: int,
     return restored_step // steps_per_epoch, gen
 
 
+def default_width(device) -> int:
+    """Data-parallel width of train(n_devices=None): the process group's
+    size inside one; else every visible card on CUDA; else 1."""
+    if in_group():
+        return dist.get_world_size()
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
 def train(cfg, dataset=None, max_steps: int | None = None,
           sample_kw: dict | None = None, device="cuda",
-          n_devices: int = 1) -> TrainState:
-    """Run training per config on one device; returns the final
-    TrainState. dataset: a sequence of (cad_ops, pc_ops, obj) triples,
-    or None for build_train_dataset(cfg) on `device`. sample_kw forwards
-    to data.pipeline.make_sample (e.g. smaller v_cad / v_pc padding)."""
-    if n_devices != 1:
-        raise NotImplementedError(_NO_MESH)
+          n_devices: int | None = None) -> TrainState:
+    """Run training per config; returns the final TrainState. dataset: a
+    sequence of (cad_ops, pc_ops, obj) triples, or None for
+    build_train_dataset(cfg) on `device`. sample_kw forwards to
+    data.pipeline.make_sample (e.g. smaller v_cad / v_pc padding).
+
+    Data-parallel over n_devices (default_width when None) whenever the
+    batch splits evenly over them, else on one device (the JAX package's
+    rule). Inside a process group (the CLIs' --coordinator) the group is
+    the data axis and n_devices must be its size or 1. Without one,
+    train() spawns n_devices worker processes (more than the visible
+    cards raises on CUDA), each on its own card, and returns the state
+    rebuilt from the final checkpoint; a dataset passed in reaches them
+    with its tensors on the CPU, and without one each worker builds it
+    on its device. Each process runs its rows of every global batch with
+    its rows of the global step draws; rank 0 alone writes the run
+    directory."""
+    n = default_width(device) if n_devices is None else n_devices
+    parallel = n > 1 and cfg.train.batch_size % n == 0
+    if in_group():
+        world = dist.get_world_size()
+        if n not in (1, world):
+            raise ValueError(f"n_devices={n} inside a process group of "
+                             f"{world}: pass {world} or 1")
+        # a group of 1 runs the data-parallel step too (its all-reduce
+        # is exact)
+        return _train(cfg, dataset, max_steps, sample_kw, device,
+                      parallel or (n == world == 1))[0]
+    if not parallel:
+        return _train(cfg, dataset, max_steps, sample_kw, device, False)[0]
+    if torch.device(device).type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"n_devices={n}: only {torch.cuda.device_count()} "
+                         "CUDA devices are visible")
+    return _spawn_train(cfg, dataset, max_steps, sample_kw, device, n)
+
+
+def _on_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_cpu(v) for v in tree)
+    return tree
+
+
+def _spawn_train(cfg, dataset, max_steps, sample_kw, device,
+                 n: int) -> TrainState:
+    """train() over n spawned worker processes (a group over a file
+    store); the returned state is the final checkpoint's."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "run_dir"
+        with worker_threads(n):
+            mp.start_processes(
+                _train_worker, nprocs=n, start_method="spawn",
+                args=(n, f"file://{tmp}/store", cfg, _on_cpu(dataset),
+                      max_steps, sample_kw, torch.device(device).type,
+                      str(out)))
+        run_dir = Path(out.read_text())
     dev = resolve_device(device)
+    model = DPFMNet(cfg.model).to(dev)
+    optimizer = make_optimizer(model, cfg.train.lr)
+    step = restore_checkpoint(latest_checkpoint(run_dir / "ckpt"), model,
+                              optimizer)
+    return TrainState(model, optimizer, step)
+
+
+def _train_worker(rank, n, store, cfg, dataset, max_steps, sample_kw,
+                  device, out):
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    init_group(store, n, rank, backend)
+    try:
+        _, run_dir = _train(cfg, dataset, max_steps, sample_kw, device, True)
+        if rank == 0:
+            Path(out).write_text(str(run_dir))
+    finally:
+        dist.destroy_process_group()
+
+
+def _global_mean(x: torch.Tensor, mesh) -> float:
+    """The mean of x's elements over every process's x."""
+    if mesh is None:
+        return float(x.mean())
+    s = all_reduce_sum(torch.stack([x.sum(), torch.tensor(
+        float(x.numel()), device=x.device)]))
+    return float(s[0] / s[1])
+
+
+def _train(cfg, dataset, max_steps, sample_kw, device, parallel: bool):
+    """The training loop of this process: (TrainState, run directory).
+    parallel: the data-parallel step over the process group's mesh."""
+    dev = resolve_device(device)
+    rank = dist.get_rank() if in_group() else 0
+    mesh = make_mesh(device=dev) if parallel else None
     if dataset is None:
         dataset = build_train_dataset(cfg, device=dev)
     tcfg = cfg.train
@@ -153,8 +255,11 @@ def train(cfg, dataset=None, max_steps: int | None = None,
         max_steps = tcfg.max_steps
     kw = {"v_cad": cfg.pad_v_cad, "v_pc": cfg.pad_v_pc}
     kw.update(sample_kw or {})
+    rows = (shard_rows(tcfg.batch_size, mesh) if mesh is not None
+            else slice(None))
     loader = HostLoader(dataset, tcfg.batch_size, shuffle=True,
-                        seed=tcfg.seed, num_threads=tcfg.num_threads, **kw)
+                        seed=tcfg.seed, num_threads=tcfg.num_threads,
+                        rows=rows, **kw)
     steps_per_epoch = max(len(loader), 1)
 
     model = init_like_flax(DPFMNet(cfg.model),
@@ -173,15 +278,35 @@ def train(cfg, dataset=None, max_steps: int | None = None,
         augment_trans=tcfg.augment_translation)
     gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
 
-    logger = MetricsLogger(cfg.logging_dir, cfg.comment,
-                           run_dir=tcfg.resume_dir)
-    ckpt_dir = logger.dir / "ckpt"
+    # rank 0 alone writes the run directory; every rank restores the
+    # checkpoint it names
+    logger = (MetricsLogger(cfg.logging_dir, cfg.comment,
+                            run_dir=tcfg.resume_dir) if rank == 0 else None)
+    run = logger.dir if logger else None
+    latest = latest_checkpoint(run / "ckpt") if logger else None
+    if in_group():
+        run, latest = broadcast_object((run, latest))
+    ckpt_dir = run / "ckpt"
     global_step = 0
-    latest = latest_checkpoint(ckpt_dir)
     if latest is not None:
         global_step = restore_checkpoint(latest, model, step_fn.optimizer)
         loader.epoch, gen = resume_offsets(global_step, steps_per_epoch,
                                            tcfg.seed, dev)
+    if in_group():
+        dist.barrier()        # every rank has read the checkpoint
+    if mesh is not None:
+        replicate(model, mesh)
+        step_fn = make_parallel_train_step(step_fn, mesh)
+        if logger:
+            print(f"train: data-parallel over {mesh.size} devices "
+                  f"({tcfg.batch_size // mesh.size} frames/device)")
+
+    def save(params_too: bool):
+        if logger:
+            save_checkpoint(ckpt_dir, model, step_fn.optimizer, global_step,
+                            keep=tcfg.checkpoint_keep)
+            if params_too:
+                save_params(run / "params_latest.msgpack", model)
 
     nf = cfg.model.n_fmap
     for epoch in range(1, tcfg.epochs + 1):
@@ -202,28 +327,26 @@ def train(cfg, dataset=None, max_steps: int | None = None,
                     ir = inlier_ratio(pairs, pvalid, batch["cad"]["xyz"],
                                       batch["align_pc"],
                                       0.1 * batch["diam_cad"])
-                logs["IR"] = float(ir.mean())
-            logger.log(logs, step=global_step)
+                logs["IR"] = _global_mean(ir, mesh)
+            if logger:
+                logger.log(logs, step=global_step)
             epoch_logs.append(logs)
             global_step += 1
-            if global_step % tcfg.log_interval == 0:
+            if logger and global_step % tcfg.log_interval == 0:
                 print(f"epoch {epoch} step {global_step} "
                       f"loss {logs['loss']:.4f}")
             if (tcfg.checkpoint_every_steps
                     and global_step % tcfg.checkpoint_every_steps == 0):
-                save_checkpoint(ckpt_dir, model, step_fn.optimizer,
-                                global_step, keep=tcfg.checkpoint_keep)
+                save(False)
             if max_steps is not None and global_step >= max_steps:
                 break
-        logger.log_epoch(epoch_logs, epoch)
+        if logger:
+            logger.log_epoch(epoch_logs, epoch)
         if epoch % tcfg.checkpoint_interval == 0:
-            save_checkpoint(ckpt_dir, model, step_fn.optimizer, global_step,
-                            keep=tcfg.checkpoint_keep)
-            save_params(logger.dir / "params_latest.msgpack", model)
+            save(True)
         if max_steps is not None and global_step >= max_steps:
             break
-    save_checkpoint(ckpt_dir, model, step_fn.optimizer, global_step,
-                    keep=tcfg.checkpoint_keep)
-    save_params(logger.dir / "params_latest.msgpack", model)
-    logger.close()
-    return TrainState(model, step_fn.optimizer, global_step)
+    save(True)
+    if logger:
+        logger.close()
+    return TrainState(model, step_fn.optimizer, global_step), run

@@ -32,6 +32,7 @@ from pose6d_tpu_torch.cli import (eval as cli_eval, gen_shapes,
                                   synth_data, train as cli_train)
 
 from test_torch_eval import f32_attention
+from test_torch_parallel import free_port, run_ranks
 
 torch.set_num_threads(2)
 
@@ -179,22 +180,80 @@ def test_entry_point_runs_as_a_module(workflow):
     assert "overall mean IR" in res.stdout and "(n=2)" in res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"]],
-                         ids=lambda f: f[0])
-@pytest.mark.parametrize("cli", ["train", "eval"])
-def test_multihost_flags_raise(cli, flag, tmp_path):
-    """The JAX CLIs' multi-host flags are accepted and refused, naming
-    the ROADMAP item: never ignored."""
-    argv = ["--config", CONFIG, "--device", "cpu", *flag,
+def test_two_process_eval_equals_one(workflow, tmp_path):
+    """cli.eval as two gloo processes (--coordinator ... --device cpu) on
+    the workflow's frames: the union of their result files is the
+    one-process run's, bit for bit at eval.batch_size=1, and each prints
+    the IR of every frame."""
+    ov = [o for o in workflow["overrides"]
+          if not o.startswith(("save_results", "eval.batch_size"))]
+    args = ["--config", CONFIG, "--device", "cpu", "--weights",
+            str(workflow["weights"]), "--save-results", *ov,
+            "eval.batch_size=1"]
+    (ir, _), = cli_eval.main([*args, f"save_results={tmp_path / 'one'}"])
+    addr = f"localhost:{free_port()}"
+    outs = run_ranks(lambda r: [
+        sys.executable, "-m", "pose6d_tpu_torch.cli.eval", "--coordinator",
+        addr, "--num-processes", "2", "--process-id", str(r), *args,
+        f"save_results={tmp_path / 'two'}"])
+    names = sorted(p.name for p in (tmp_path / "one").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "two").iterdir())
+    assert len(names) == 2
+    for name in names:
+        a, b = np.load(tmp_path / "one" / name), np.load(tmp_path / "two" /
+                                                         name)
+        assert a.files == b.files
+        for k in a.files:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    for out in outs:
+        assert f"overall IR: {ir:.4f}" in out
+
+
+def _cli_argv(cli, tmp_path, *flags):
+    argv = ["--config", CONFIG, "--device", "cpu", *flags,
             f"logging_dir={tmp_path}"]
-    main = cli_train.main
     if cli == "eval":
         argv += ["--weights", str(tmp_path / "w.msgpack")]
-        main = cli_eval.main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    return argv, {"train": cli_train.main, "eval": cli_eval.main}[cli]
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_coordinator_needs_both_counts(cli, tmp_path):
+    argv, main = _cli_argv(cli, tmp_path, "--coordinator", "localhost:1234")
+    with pytest.raises(ValueError,
+                       match="needs --num-processes and --process-id"):
         main(argv)
+    argv, main = _cli_argv(cli, tmp_path, "--coordinator", "localhost:1234",
+                           "--num-processes", "2")
+    with pytest.raises(ValueError, match="needs --process-id"):
+        main(argv)
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_counts_without_coordinator_are_unused(cli, workflow, tmp_path):
+    """As in the JAX CLIs: --num-processes / --process-id alone start no
+    group, and the run is the one-process run."""
+    flags = ["--num-processes", "2", "--process-id", "1"]
+    ov = [o for o in workflow["overrides"] if not o.startswith(
+        ("logging_dir", "save_results"))]
+    base = ["--config", CONFIG, "--device", "cpu", *flags, *ov,
+            f"logging_dir={tmp_path}", f"save_results={tmp_path / 'res'}"]
+    if cli == "train":
+        state = cli_train.main(base)
+        assert state.step == 2
+        ref = [json.loads(ln)["loss"] for ln in (
+            workflow["weights"].parent / "metrics.jsonl").read_text()
+            .splitlines() if '"step"' in ln]
+        (run,) = tmp_path.iterdir()
+        got = [json.loads(ln)["loss"] for ln in (
+            run / "metrics.jsonl").read_text().splitlines()
+            if '"step"' in ln]
+        assert got == ref
+    else:
+        (ir, _), = cli_eval.main([*base, "--weights",
+                                  str(workflow["weights"])])
+        assert ir == workflow["ir"]
+    assert not torch.distributed.is_initialized()
 
 
 def test_eval_refuses_reference_pt_weights(workflow, tmp_path):

@@ -237,7 +237,8 @@ def test_candidate_predictor_exports_and_matches_live(monkeypatch):
     assert sum("while_loop" in t for t in targets) == 10
     u = serving.ransac_uniforms(SIZES["ransac_hypotheses"], seed=1,
                                 device="cpu")
-    out = serving.load_exported(blob)(*frame_inputs(depth, mask, K), u)
+    out = serving.load_exported(blob, device="cpu")(
+        *frame_inputs(depth, mask, K), u)
     live = pred.predict(depth, K, 1.0, [mask], [3], uniforms=[u])[0]
     for k in serving.OUTPUTS:
         np.testing.assert_array_equal(out[k].numpy(), live[k], err_msg=k)

@@ -95,7 +95,7 @@ def test_roundtrip_matches_live_predictor(exported):
     """The artifact against the live request on the same draws: every
     output bit for bit, and a proper rotation."""
     assert len(exported["blob"]) > 10_000
-    fn = serving.load_exported(exported["blob"])
+    fn = serving.load_exported(exported["blob"], device="cpu")
     out = fn(*exported["inputs"], exported["uniforms"])
     live = exported["live"]
     assert set(out) == set(serving.OUTPUTS)
@@ -104,6 +104,14 @@ def test_roundtrip_matches_live_predictor(exported):
         assert got.dtype == live[k].dtype and got.shape == live[k].shape, k
         np.testing.assert_array_equal(got, live[k], err_msg=k)
     assert abs(float(np.linalg.det(out["R"].double().numpy())) - 1) < 1e-3
+
+
+def test_load_exported_defaults_to_the_card(monkeypatch):
+    """load_exported runs on the card unless the CPU is asked for: where
+    CUDA is missing the default refuses, before the blob is read."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serving.load_exported(b"")
 
 
 def test_artifact_runs_without_model_code(exported, tmp_path):
@@ -117,7 +125,8 @@ def test_artifact_runs_without_model_code(exported, tmp_path):
         "import sys, torch\n"
         "from pose6d_tpu_torch.serving import load_exported\n"
         "d = torch.load(sys.argv[1] + '/inputs.pt')\n"
-        "fn = load_exported(open(sys.argv[1] + '/frame.pt2', 'rb').read())\n"
+        "fn = load_exported(open(sys.argv[1] + '/frame.pt2', 'rb').read(),\n"
+        "                   device='cpu')\n"
         "torch.save(fn(*d['inputs'], d['u']), sys.argv[1] + '/out.pt')\n"
         "print(' '.join(sorted(m for m in sys.modules\n"
         "                      if m.startswith(('pose6d_tpu', 'jax')))))\n")
@@ -208,7 +217,8 @@ def test_artifact_matches_jax_artifact(monkeypatch):
     pred = Predictor(load_flax_checkpoint(CKPT, DPFMNet()), {seed: cad_ops},
                      device="cpu", **sizes)
     fn = serving.load_exported(serving.export_predictor(pred, seed,
-                                                        depth.shape))
+                                                        depth.shape),
+                               device="cpu")
     out = fn(*frame_inputs(depth, mask, K), torch.as_tensor(draws))
 
     assert _angle_deg(out["R"].numpy(), ref["R"]) < 1.0

@@ -427,8 +427,6 @@ def test_train_loop_cpu_writes_metrics(tmp_path):
                   "IR"):
             assert np.isfinite(r[k]), k
     assert (run / "params_latest.msgpack").exists()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train(_cfg(tmp_path), dataset=[], device="cpu", n_devices=4)
 
 
 def test_train_loop_resumes_from_checkpoint(tmp_path):
