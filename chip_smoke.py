@@ -47,7 +47,17 @@ within 0.05, a rerun bit for bit, and 8 steps at both widths printed
 over the two ranks, at eval.batch_size=1 the union of their result
 files bit for bit the one-process run's and the IR within float32
 rounding (the config's batch size printed, not held). The workers
-print their launch counts (PATH_KERNELS["data_parallel"]).
+print their launch counts (PATH_KERNELS["data_parallel"]). Between
+model_selection and data_parallel, wide_shapes drives the kernel shapes
+that only other configurations or flags reach: (a) resolve at top-k 24
+and 32 (in model_selection, card against CPU), (b) four models of
+other head shapes (head dims 64, 128, 8 with 8 heads, 16 with 3 heads:
+forward and a B = 8 train step, kernels against the plain attention on
+the card), (c) ZoomOut to 96 features (a well-conditioned refit card
+against CPU, and Predictor(zoomout_k=96) on a 128-eigenvector model);
+kernel_check holds each of those instances against its plain version
+(flash at those head shapes, top-k at k = 24, 32, 64, cdist at C = 96
+and 128, rank-major at k = 24 and 32).
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
@@ -112,6 +122,11 @@ PATH_KERNELS = {
                       "flash_cross_attention_backward",
                       "consistency_sum_rank_major", "masked_topk_cdist",
                       "masked_argmin_cdist"),
+    # wide_shapes: the wide-head models' forwards and train steps, the
+    # ZoomOut-96 request (and model_selection's resolves at top-k 24, 32)
+    "wide_shapes": ("flash_cross_attention", "flash_cross_attention_backward",
+                    "consistency_sum_rank_major", "masked_topk_cdist",
+                    "masked_argmin_cdist", "masked_consistency_sum"),
 }
 
 
@@ -205,6 +220,9 @@ def check_kernels(dev) -> dict:
     rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
     rows["masked_topk_cdist"]["by_k"] = topk_by_k(dev, g)
     rows["consistency_sum_rank_major"]["by_k"] = rank_major_by_k(dev, g)
+    wide_c = cdist_wide_c(dev, g)
+    for name in ("masked_topk_cdist", "masked_argmin_cdist"):
+        rows[name]["wide_c"] = wide_c[name]
     rows["flash_cross_attention"]["instances"] = flash_instances(dev, g)
     rows["flash_cross_attention_backward"]["instances"] = \
         flash_backward_instances(dev, g)
@@ -346,9 +364,13 @@ def check_flash_forward(dev, g) -> dict:
 
 
 # the flash kernels' other instances on the refiner's shapes: head dim 32
-# (attention_type="double": 64 / 2 heads, 128 / 4 wide) and the wide
-# model's 4 heads at dim 16
-FLASH_INSTANCES = ((32, 2), (32, 4), (16, 4))
+# (attention_type="double": 64 / 2 heads, 128 / 4 wide), the wide
+# model's 4 heads at dim 16, and the head shapes of wider or other
+# configurations: head dim 8 (padded to the 16 instance) with 8 heads, 3
+# heads of 16 (both folded into one-head frames), head dims 64 and 128
+# with 2 heads (the split-query forward, the split-warp backward)
+FLASH_INSTANCES = ((32, 2), (32, 4), (16, 4), (8, 8), (16, 3), (64, 2),
+                   (128, 2))
 
 
 def flash_instances(dev, g) -> dict:
@@ -573,6 +595,7 @@ def cdist_fns(k: int):
 # (normal spread, grid step, clip) of the exact-grid inputs, by C: the
 # spectral embedding's scale for C = 30, centimetres for ICP's C = 3
 CDIST_GRIDS = {30: (0.05, 2.0 ** -10, 0.125), 64: (0.05, 2.0 ** -10, 0.125),
+               96: (0.05, 2.0 ** -10, 0.125), 128: (0.05, 2.0 ** -10, 0.125),
                3: (5.0, 2.0 ** -6, 10.0)}
 # ZoomOut's nearest-neighbour shape: (frames, queries, columns, valid
 # columns, features); the ZoomOut candidate's top-5 runs at the same C
@@ -723,6 +746,54 @@ def cdist_zoomout(name, kern, plain, library, k, dev, g) -> dict:
                       "valid in all, ties")
 
 
+# feature widths above 64 (ZoomOut at zoomout_k 96, the naive solver at
+# n_fmap > 64) and the k each reaches: the argmin (k = 1), the spectral
+# top-5 (chunked list instances), top-16 and resolve's top-24 (the wide
+# path, which takes 8 < k <= 16 above 64 features)
+WIDE_C = (96, 128)
+WIDE_C_K = (1, 5, 16, 24)
+
+
+def cdist_wide_c(dev, g) -> dict:
+    """Kernels 3 and 4 at C = 96 and 128 (features staged in chunks of
+    64) for each k of WIDE_C_K, on the spectral shape (2048 queries x
+    5120 columns, 5000 valid) at B = 1 and B = 16 on exact-grid inputs
+    with exact ties: held to the plain version bit for bit (indices and
+    d2, two launches identical), timed by graph replay beside the plain
+    version, torch.cdist + min / topk and the bound. Returns
+    {"masked_argmin_cdist": {"c96": {"b1", "b16"}, ...},
+    "masked_topk_cdist": {"c96": {"k=5": {"b1", "b16"}, ...}, ...}}."""
+    n, m, m_valid = 2048, 5120, 5000
+    out = {"masked_argmin_cdist": {}, "masked_topk_cdist": {}}
+    for c in WIDE_C:
+        for k in WIDE_C_K:
+            kern, plain, library = cdist_fns(k)
+            row = {}
+            for label, bsz in (("b1", 1), ("b16", BATCH)):
+                a = grid_points((bsz, n, c), c, dev, g)
+                b = grid_points((bsz, m, c), c, dev, g)
+                b[:, 1:64:2] = b[:, 0:64:2]
+                bv = torch.arange(m, device=dev).expand(bsz, m) < m_valid
+                res = compare_cdist(f"C={c} k={k} {label}", kern, plain, a,
+                                    b, bv)
+                del res["out"]
+                b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m
+                                 + 8 * bsz * n * k, 2 * c * bsz * n * m_valid)
+                row[label] = dict(res, ms=graph_ms(lambda: kern(a, b, bv), 10),
+                                  plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
+                                  library_ms=graph_ms(
+                                      lambda: library(a, b, bv), 3),
+                                  bound_ms=b_ms, bound_by=by,
+                                  shape=f"a ({bsz},{n},{c}) x b ({bsz},{m},"
+                                        f"{c}), {m_valid} valid, ties")
+            if k == 1:
+                out["masked_argmin_cdist"][f"c{c}"] = row
+            else:
+                out["masked_topk_cdist"].setdefault(f"c{c}", {})[f"k={k}"] = \
+                    row
+    return out
+
+
 def cdist_edges(name, kern, plain, c, dev, g) -> dict:
     """Three frames of 2000 queries (a multiple of no tile) x 5120 b
     rows on the exact grid: frame 0 with exact ties (adjacent equal rows
@@ -761,14 +832,16 @@ def cdist_edges(name, kern, plain, c, dev, g) -> dict:
                 shape=f"a (3,{n},{c}) x b (3,{m},{c}): ties / 3 valid / none")
 
 
-# the k of the widened kernels' checks: every instance of the
-# top-k kernel (1, 5, 8, 16) and a k that slices one (3), and the same k
-# for the rank-major sums (chunks of 1, 3, 5, 4 x 2 and 4 x 4 ranks)
-WIDE_K = (1, 3, 5, 8, 16)
+# the k of the widened kernels' checks: every list instance of the
+# top-k kernel (1, 5, 8, 16), a k that slices one (3) and the wide path
+# (24, 32: resolve --topk; 64), and for the rank-major sums (chunks of
+# 1, 3, 5, 4 x 2, 4 x 4, 5 x 5 and 7 x 5 ranks, two row groups above 16)
+TOPK_K = (1, 3, 5, 8, 16, 24, 32, 64)
+RANK_MAJOR_K = (1, 3, 5, 8, 16, 24, 32)
 
 
 def topk_by_k(dev, g) -> dict:
-    """Kernel 3 at each k of WIDE_K on the spectral shape (C = 30, 2048
+    """Kernel 3 at each k of TOPK_K on the spectral shape (C = 30, 2048
     queries x 5120 columns, 5000 valid) at B = 1 and B = 16, on
     exact-grid inputs held to the plain version bit for bit (indices and
     d2, two launches identical), and on three frames with 3 valid / no
@@ -779,7 +852,7 @@ def topk_by_k(dev, g) -> dict:
     from pose6d_tpu_torch.ops import kernels as K
     n, m, m_valid, c = 2048, 5120, 5000, 30
     out = {}
-    for k in WIDE_K:
+    for k in TOPK_K:
         def kern(a, b, bv):
             return K.masked_topk_cdist(a, b, bv, k)
 
@@ -822,19 +895,20 @@ def topk_by_k(dev, g) -> dict:
 
 
 def rank_major_by_k(dev, g) -> dict:
-    """Kernel 2 at each k of WIDE_K at V2 = 2048 (70 % of the rows live)
-    at B = 1 and B = 16, against the plain version within 1e-4 of the
-    largest sum, two launches identical, a frame with no live row all
-    zero; timed by graph replay, with its bound and cdist + einsum over
-    the PC table tiled k x k (frame by frame where the batched tables
-    would not fit)."""
+    """Kernel 2 at each k of RANK_MAJOR_K at V2 = 2048 (70 % of the rows
+    live) at B = 1 and B = 16, against the plain version within 1e-4 of
+    the largest sum, two launches identical, a frame with no live row
+    all zero; timed by graph replay, with its bound and cdist + einsum
+    over the PC table tiled k x k (frame by frame where the batched
+    tables would not fit, and in the plain version's column blocks above
+    2^30 table entries: k = 24, 32)."""
     from pose6d_tpu_torch.ops import kernels as K
     from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
     from pose6d_tpu_torch.ops.kernels.consistency import (
-        rank_major_chunks, rank_major_segments_on)
+        plain_column_blocks, rank_major_chunks, rank_major_segments_on)
     v2 = 2048
     out = {}
-    for k in WIDE_K:
+    for k in RANK_MAJOR_K:
         p = k * v2
         row = {}
         for label, bsz in (("b1", 1), ("b16", BATCH)):
@@ -860,11 +934,16 @@ def rank_major_by_k(dev, g) -> dict:
             # as fit in ~8 GB
             per = max(1, int(8e9 // (3 * 4 * p * p)))
 
+            blocks = plain_column_blocks(p, v2)
+
             def library():
                 for f in range(0, bsz, per):
-                    da = torch.cdist(cad[f:f + per], cad[f:f + per])
-                    torch.einsum("bi,bij->bj", w[f:f + per], (
-                        da - dpc[f:f + per].repeat(1, k, k)).abs_())
+                    for j0, j1 in blocks:
+                        da = torch.cdist(cad[f:f + per],
+                                         cad[f:f + per, j0:j1])
+                        torch.einsum("bi,bij->bj", w[f:f + per], (
+                            da - dpc[f:f + per].repeat(
+                                1, k, (j1 - j0) // v2)).abs_())
 
             row[label] = dict(
                 max_abs_err=err, tol=tol,
@@ -874,7 +953,8 @@ def rank_major_by_k(dev, g) -> dict:
                     cad, dpc, w, v2), 1),
                 library_ms=cuda_ms(library, 1), bound_ms=b_ms, bound_by=by,
                 segments=rank_major_segments_on(dev, bsz, v2, k),
-                rank_chunks=rank_major_chunks(k))
+                rank_chunks=rank_major_chunks(k),
+                library_column_blocks=len(blocks))
             del cad, pc, dpc, w, o1, o2, ref
         out[f"k={k}"] = row
     return out
@@ -2375,7 +2455,8 @@ def variants_phase(vitems, dev, gpu_line: str) -> dict:
     from pose6d_tpu_torch.models import DPFMConfig, DPFMNet, init_like_flax
     from pose6d_tpu_torch.ops import sampling
     from pose6d_tpu_torch.ops.kernels import reset_launches
-    from pose6d_tpu_torch.ops.kernels._build import LAUNCHES_BY_INSTANCE
+    from pose6d_tpu_torch.ops.kernels._build import (LAUNCHES_BY_INSTANCE,
+                                                     instance_label)
     batch = collate([make_sample(*it, rng=np.random.default_rng(i))
                      for i, it in enumerate(vitems)])
     cpu_b, dev_b = to_device(batch, "cpu"), to_device(batch, dev)
@@ -2413,12 +2494,12 @@ def variants_phase(vitems, dev, gpu_line: str) -> dict:
     if fps_diff:
         raise AssertionError(f"FPS picks differ card vs CPU: {fps_diff}")
     launched(PATH_KERNELS["variants"][:1], "variants forwards")
-    forwards = {f"{k[0]} {k[1]}x{k[2]}": v for k, v in
+    forwards = {instance_label(k): v for k, v in
                 LAUNCHES_BY_INSTANCE.items()}
     variant_train_step(batch, dev, gpu_line)
     counts = launched(PATH_KERNELS["variants"], "variants")
     emit("variant_launches", forwards=forwards,
-         forwards_and_step={f"{k[0]} {k[1]}x{k[2]}": v for k, v in
+         forwards_and_step={instance_label(k): v for k, v in
                             LAUNCHES_BY_INSTANCE.items()}, total=counts,
          note="per kernel and (head dim x heads): the 9 variants' "
               "forwards (B = 2), then the train step's forward and "
@@ -3233,13 +3314,14 @@ def pose_stage_runs(results_dir, gpu_line: str):
     return paths, avg, finish
 
 
-def zoomout_check(frames, dev, gpu_line: str) -> None:
+def zoomout_check(frames, dev, gpu_line: str, k: int = 64) -> None:
     """zoomout_refine at full width on a well-conditioned pair: B = 2
     (the LM CADs padded to 5120, k 30 -> 64 in 9 rounds, gated at 0.15
-    of the diameter), 2048 observed rows, each a CAD row (its xyz moved
-    rigidly, its eigenvector row with 1e-4 noise), C0 the identity:
-    every round's matches are determined. Card against the port's CPU:
-    C within 1e-4 and the same final matches, which are the true ones."""
+    of the diameter; or the given frames and k), 2048 observed rows,
+    each a CAD row (its xyz moved rigidly, its eigenvector row with 1e-4
+    noise), C0 the identity: every round's matches are determined. Card
+    against the port's CPU: C within 1e-4 and the same final matches,
+    which are the true ones."""
     from scipy.spatial.transform import Rotation
 
     from pose6d_tpu_torch.ops.nn import nearest_valid
@@ -3250,13 +3332,13 @@ def zoomout_check(frames, dev, gpu_line: str) -> None:
     cad, ex, cv, pc, ey, truth, diam = [], [], [], [], [], [], []
     for f in frames:
         xyz = np.asarray(f["cad_ops"]["xyz"], np.float32)
-        ev = np.asarray(f["cad_ops"]["evecs"][:, :64], np.float32)
+        ev = np.asarray(f["cad_ops"]["evecs"][:, :k], np.float32)
         idx = rng.choice(len(xyz), 2048, replace=False)
         cad.append(pad_to(xyz, 5120))
         ex.append(pad_to(ev, 5120))
         cv.append(np.arange(5120) < len(xyz))
         pc.append((xyz[idx] @ R.T + [2.0, -3.0, 80.0]).astype(np.float32))
-        ey.append((ev[idx] + 1e-4 * rng.normal(size=(2048, 64))).astype(
+        ey.append((ev[idx] + 1e-4 * rng.normal(size=(2048, k))).astype(
             np.float32))
         truth.append(idx)
         diam.append(f["diam"])
@@ -3280,9 +3362,10 @@ def zoomout_check(frames, dev, gpu_line: str) -> None:
     c_err = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
     same = bool(np.array_equal(out["cuda"][1], out["cpu"][1]))
     true = bool(np.array_equal(out["cuda"][1], np.stack(truth)))
-    emit("zoomout_check", gpu=gpu_line, shape="B 2 x 2048 x 5120, k 30 -> 64",
+    emit("zoomout_check", gpu=gpu_line,
+         shape=f"B {len(frames)} x 2048 x 5120, k 30 -> {k}",
          C_max_abs_diff=c_err, p2p_equal=same, p2p_true=true,
-         C_offdiag_max=float(np.abs(out["cuda"][0] - np.eye(64)).max()),
+         C_offdiag_max=float(np.abs(out["cuda"][0] - np.eye(k)).max()),
          ms={"cuda": out["cuda"][2], "cpu": out["cpu"][2]},
          tol="C 1e-4, the same matches, the true matches",
          timing="host clock, first call, device synchronised at the end")
@@ -3831,7 +3914,17 @@ RESOLVE_RUNS = (("topk3", ["--topk", "3"]), ("topk5", ["--topk", "5"]),
                 ("topk8", ["--topk", "8"]),
                 ("taus", ["--topk", "5", "--taus", "0.35", "0.2", "0.1",
                           "0.12"]),
-                ("naive", ["--solver", "naive"]))
+                ("naive", ["--solver", "naive"]),
+                ("topk24", ["--topk", "24"]), ("topk32", ["--topk", "32"]))
+# the resolves above the top-k kernel's list instances (the wide path,
+# rank-major sums over two row groups), reported again by wide_shapes
+WIDE_RESOLVES = ("topk24", "topk32")
+# the CPU side's files of a resolve: the first set's, all of them, but
+# for the wide resolves its first file only. Their plain rank-major sums
+# build (P, P) tables at P = 24 x 2048 and 32 x 2048 (2.4e9 and 4.3e9
+# entries a pruning round, in column blocks), ~15-30 s a file on the
+# workers' 4 threads
+RESOLVE_CPU_FILES = {"topk24": 1, "topk32": 1}
 
 # the inputs that resolve_file reads as floats, moved by up to 2^-22
 # relative (about two f32 ulps) to find the answers that rounding decides
@@ -3884,8 +3977,9 @@ def model_selection(gpu_line: str) -> dict:
     cache (lm_synth.yaml at full width, a checkpoint per step, the last 5
     kept): probe_ckpts over the kept curve on both eval sets; swa of the
     curve on the card and on the CPU; cli.eval with the SWA params on
-    the card; resolve of the eval results at top-k 3, 5, 8, at top-k 5
-    with another schedule, and naive, on the card and the CPU (copies);
+    the card; resolve of the eval results at top-k 3, 5, 8, 24 and 32,
+    at top-k 5 with another schedule, and naive, on the card and the CPU
+    (copies; the CPU's top-k 24 and 32 on the first file only);
     sym_ir of the card's and the CPU's eval results; visualize corr of
     one result. Each timed (host clock, device synchronised), its
     launches counted from 0; the in-process card runs must launch the
@@ -3926,11 +4020,13 @@ def model_selection(gpu_line: str) -> dict:
                                       swa, sym_ir, visualize)
     from pose6d_tpu_torch.config import load_config
     from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.ops.kernels._build import (LAUNCHES_BY_INSTANCE,
+                                                     instance_label)
     t_phase = time.perf_counter()
     (run,) = (CLI_DIR / "logs").iterdir()
     steps = [swa.checkpoint_step(c) for c in swa.select_paths(run)]
     cfg = load_config(CLI_CONFIG, cli_overrides("cache"))
-    secs, launches, failed = {}, {}, []
+    secs, launches, failed, by_instance = {}, {}, [], {}
 
     def counted(label, fn, *args):
         reset_launches()
@@ -3946,6 +4042,11 @@ def model_selection(gpu_line: str) -> dict:
             copy = CLI_DIR / f"resolve_{label}_{d}"
             shutil.rmtree(copy, ignore_errors=True)
             shutil.copytree(CLI_DIR / "results", copy)
+        if label in RESOLVE_CPU_FILES:
+            files = sorted((CLI_DIR / f"resolve_{label}_cpu" / CLI_NAMES[0])
+                           .glob("result_*.npz"))
+            for f in files[RESOLVE_CPU_FILES[label]:]:
+                f.unlink()
         cpu_resolve[label] = on_cpu(resolve.main, [
             str(CLI_DIR / f"resolve_{label}_cpu" / CLI_NAMES[0]), "--device",
             "cpu", *flags])
@@ -3975,6 +4076,8 @@ def model_selection(gpu_line: str) -> dict:
         torch.cuda.synchronize()
         secs[f"resolve_{label}"] = time.perf_counter() - t0
         launches[f"resolve_{label}"] = dict(LAUNCHES)
+        by_instance[label] = {instance_label(k): v for k, v in
+                              LAUNCHES_BY_INSTANCE.items()}
 
     secs["probe_ckpts_cpu_last_step"], inst["cpu"] = cpu_probe.result()
     probe_rows = []
@@ -4079,7 +4182,14 @@ def model_selection(gpu_line: str) -> dict:
     if failed or missing:
         raise AssertionError(f"model_selection: disagree on {failed}, not "
                              f"launched {missing}")
-    return counts
+    wide = {label: {"seconds_card": secs[f"resolve_{label}"],
+                    "seconds_cpu_first_file": secs[
+                        f"resolve_{label}_cpu_first_set"],
+                    "launches": launches[f"resolve_{label}"],
+                    "launches_by_instance": by_instance[label],
+                    "card_vs_cpu": resolve_rows[label]}
+            for label in WIDE_RESOLVES}
+    return counts, wide
 
 
 def train_repeat(gpu_line: str) -> tuple:
@@ -4461,6 +4571,309 @@ def online_grouped_fps(frames, model, stages, gpu_line: str) -> None:
                                      f"differ on obj {f['obj']}")
 
 
+# wide_shapes (b): models whose refiner runs the new flash instances,
+# lm_synth.yaml's model block with the attention widths replaced:
+# {name: (gnn_dim, num_head)}; head dim = gnn_dim / num_head
+WIDE_HEAD_MODELS = {"head_dim_64": (128, 2), "head_dim_128": (256, 2),
+                    "head_dim_8_8_heads": (64, 8),
+                    "head_dim_16_3_heads": (48, 3)}
+# wide_shapes (c): ZoomOut to 96 features needs a 128-eigenvector basis
+ZOOMOUT_WIDE_K, ZOOMOUT_WIDE_EIG = 96, 128
+
+
+def model_block(gnn_dim: int = 32, num_head: int = 2,
+                k_eig: int = 64) -> dict:
+    """A config/*.yaml `model` block (lm_synth.yaml's) at these widths."""
+    return {"fmap": {"n_fmap": 30, "k_eig": k_eig, "n_feat": 32, "C_in": 3,
+                     "lambda_": 100, "resolvant_gamma": 0.5, "robust": True},
+            "attention": {"num_head": num_head, "gnn_dim": gnn_dim,
+                          "ref_n_layers": 1, "cross_sampling_ratio": 1.0,
+                          "attention_type": "normal"},
+            "overlap": {"overlap_feat_dim": 32}}
+
+
+def wide_head_models(items, frames, dev, gpu_line: str) -> None:
+    """wide_shapes (b): each WIDE_HEAD_MODELS model, built by
+    DPFMConfig.from_yaml_dict from its in-memory block at full width
+    (CAD 5120, PC 2048), weights drawn as flax draws them from seed 0 and
+    carried through the JAX layout (flax_from_state_dict ->
+    state_dict_from_flax, strict), on the card. One forward on the LM
+    pair (B = 2) with the kernels, held against the same forward in
+    float64 (the plain attention, model and inputs in float64) within
+    VARIANT_TOL; the plain attention's f32 forward is printed against
+    it too (on these models it is the less exact of the two, so it
+    cannot be the reference at that tolerance; PERF.md). Then
+    one TrainStep at B = 8 (training_items, augmentation on) with the
+    kernels and with the plain attention from the same init and draws:
+    the loss within 1e-4, the gradient norm within VARIANT_NORM_TOL and
+    each gradient leaf under train_check's rule."""
+    from pose6d_tpu_torch.data.pipeline import collate, make_sample, to_device
+    from pose6d_tpu_torch.models import DPFMConfig, DPFMNet, init_like_flax
+    from pose6d_tpu_torch.models.weights import (flax_from_state_dict,
+                                                 state_dict_from_flax)
+    from pose6d_tpu_torch.train.train_step import TrainStep
+    import pose6d_tpu_torch.models.attention as attention
+    from pose6d_tpu_torch.ops.kernels import flash_cross_attention_plain
+    pair = [next(it for it in items if it[2]["obj_id"] == f["obj"])
+            for f in frames]
+    fwd_b = to_device(collate([make_sample(*it, rng=np.random.default_rng(i))
+                               for i, it in enumerate(pair)]), dev)
+
+    def f64(d):
+        return {k: v.double() if v.is_floating_point() else v
+                for k, v in d.items()}
+
+    batch = collate([make_sample(*it, rng=np.random.default_rng(10 + i))
+                     for i, it in enumerate(items)])
+    kernel = attention.flash_cross_attention
+    for name, (gnn_dim, heads) in WIDE_HEAD_MODELS.items():
+        cfg = DPFMConfig.from_yaml_dict(model_block(gnn_dim, heads))
+        init = init_like_flax(DPFMNet(cfg), torch.Generator().manual_seed(0))
+        model = DPFMNet(cfg)
+        model.load_state_dict(state_dict_from_flax(flax_from_state_dict(
+            init.state_dict())), strict=True)
+        res = {}
+        try:
+            for side in ("kernels", "plain", "float64"):
+                attention.flash_cross_attention = (
+                    kernel if side == "kernels" else flash_cross_attention_plain)
+                net = cpu_copy(model).to(dev)
+                cad, pc = fwd_b["cad"], fwd_b["pc"]
+                if side == "float64":
+                    net, cad, pc = net.double(), f64(cad), f64(pc)
+                with torch.inference_mode():
+                    out = net(cad, pc)
+                    ms = cuda_ms(lambda: net(cad, pc), 3, 0)
+                res[side] = dict(forward_ms=ms, out={
+                    k: v.double().cpu() for k, v in out.items()})
+                if side == "float64":
+                    continue
+                net.train()
+                ts = TrainStep(net, lr=5e-4,
+                               augment_angle=math.radians(15.0),
+                               augment_trans=1.0)
+                draws = ts.draw(to_device(batch, "cpu"),
+                                torch.Generator().manual_seed(0))
+                draws = {k: v.to(dev) for k, v in draws.items()}
+                b = to_device(batch, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, _ = ts.forward_loss(b, draws)
+                grads = ts.backward(loss)
+                torch.cuda.synchronize()
+                names = [n for n, _ in net.named_parameters()]
+                res[side].update(
+                    step_s=time.perf_counter() - t0, loss=loss.item(),
+                    grads={n: g.detach().cpu() for n, g in zip(names, grads)},
+                    norm=float(torch.sqrt(sum((g.double() ** 2).sum()
+                                              for g in grads))))
+        finally:
+            attention.flash_cross_attention = kernel
+        kern, plain, ref = res["kernels"], res["plain"], res["float64"]
+        errs, bad = {}, []
+        for key, r in ref["out"].items():
+            top = max(r.abs().max().item(), 1e-30)
+            e = [(x["out"][key] - r).abs().max().item() / top
+                 for x in (kern, plain)]
+            errs[key] = {"kernels": e[0], "plain": e[1]}
+            if not (e[0] <= VARIANT_TOL["C" if key == "C" else "other"]
+                    and torch.isfinite(kern["out"][key]).all()):
+                bad.append(key)
+        gmax = max(v.abs().max().item() for v in plain["grads"].values())
+        worst = max(((kern["grads"][n] - g).abs().max().item()
+                     / (1e-2 * g.abs().max().item() + 1e-4 * gmax), n)
+                    for n, g in plain["grads"].items())
+        emit("wide_shapes", part="b", model=name, gnn_dim=gnn_dim,
+             num_head=heads, head_dim=gnn_dim // heads, gpu=gpu_line,
+             forward_rel_err_vs_float64=errs,
+             forward_ms={s: res[s]["forward_ms"] for s in res},
+             loss=[kern["loss"], plain["loss"]],
+             grad_norm=[kern["norm"], plain["norm"]],
+             worst_grad_err_over_tol=worst, step_s=[kern["step_s"],
+                                                    plain["step_s"]],
+             tol="forward against float64: C 1e-3 of max |C|, the rest "
+                 "1e-4 (the plain attention's f32 error printed beside); "
+                 "step, kernels against the plain attention: loss 1e-4 "
+                 "rel, grad norm 2e-3 rel, each leaf 1e-2 of its max + "
+                 "1e-4 of the largest",
+             timing="forward_ms: CUDA events over 3 forwards at B = 2; "
+                    "step_s: host clock around the first step at B = 8 "
+                    "[kernels, plain]")
+        if bad or not (abs(kern["loss"] - plain["loss"])
+                       <= 1e-4 * abs(plain["loss"])
+                       and abs(kern["norm"] - plain["norm"])
+                       <= VARIANT_NORM_TOL * plain["norm"]
+                       and worst[0] <= 1.0):
+            raise AssertionError(f"wide model {name}: forward apart on {bad}"
+                                 f" or train step apart (loss "
+                                 f"{kern['loss']} / {plain['loss']}, norm "
+                                 f"{kern['norm']} / {plain['norm']}, worst "
+                                 f"leaf {worst})")
+
+
+def zoomout_wide_request(frame: dict, cad_ops: dict, state: dict,
+                         device: str, draws) -> dict:
+    """wide_shapes (c)'s request on `device`: the synth_seen weights in a
+    k_eig = ZOOMOUT_WIDE_EIG model (DiffusionNet's parameters do not
+    depend on k_eig), Predictor(mode="online", zoomout_k=96, 4096
+    hypotheses, select_trigger=0).predict on the frame with RANSAC
+    draws `draws`; then the base map's spatial-filter survivors over the
+    valid PC points of the same cloud and operators (the determination
+    rule's inputs). Module-level: the CPU side runs in a CPU worker."""
+    from pose6d_tpu_torch.api import Predictor
+    from pose6d_tpu_torch.data.synth import default_intrinsics
+    from pose6d_tpu_torch.models import DPFMConfig, DPFMNet
+    model = DPFMNet(DPFMConfig.from_yaml_dict(
+        model_block(k_eig=ZOOMOUT_WIDE_EIG)))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    model = model.to(device).eval()
+    obj = frame["obj"]
+    pred = Predictor(model, {obj: cad_ops}, mode="online",
+                     ransac_hypotheses=4096, zoomout_k=ZOOMOUT_WIDE_K,
+                     select_trigger=0.0, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pred.predict(frame["depth"], default_intrinsics(), 1.0,
+                       [frame["mask"]], [obj], uniforms=[draws])[0]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    st = pred._object(obj)
+    dev = pred.device
+    with torch.inference_mode():
+        pc_xyz, pc_valid = pred._cloud_from_depth(
+            torch.as_tensor(frame["depth"].astype(np.float32), device=dev)[None],
+            torch.as_tensor(default_intrinsics(), dtype=torch.float32,
+                            device=dev)[None],
+            torch.tensor(1000.0, device=dev),
+            torch.as_tensor(frame["mask"], device=dev)[None])
+        pc = pred._operators(pc_xyz, pc_valid, st["x0"])
+    surv = base_survivors(model, st["cad"], pc, pred._diam[obj])
+    return {"R": out["R"], "t": out["t"],
+            "candidate": int(out["candidate"]),
+            "flip_hypothesis": int(out["flip_hypothesis"]), "ms": ms,
+            "base_survivors": surv[0], "valid_pc_points": surv[1]}
+
+
+def zoomout_wide_jobs(online, model) -> tuple:
+    """wide_shapes (c)'s inputs, and its CPU sides started in the CPU
+    workers: each online frame's CAD operators at ZOOMOUT_WIDE_EIG
+    eigenvectors and RANSAC draws, and zoomout_wide_request on the CPU.
+    Returns (state, jobs)."""
+    from pose6d_tpu_torch.spectral.operators import point_cloud_operators
+    state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    jobs = []
+    for i, f in enumerate(online):
+        t0 = time.perf_counter()
+        cad_ops = point_cloud_operators(
+            np.asarray(f["cad_ops"]["xyz"], np.float64),
+            k_eig=ZOOMOUT_WIDE_EIG)
+        ops_s = time.perf_counter() - t0
+        frame = {k: f[k] for k in ("obj", "depth", "mask", "diam")}
+        draws = np.random.default_rng(4 + i).random((8, 512, 3),
+                                                    dtype=np.float32)
+        jobs.append((f, cad_ops, ops_s, frame, draws, on_cpu(
+            zoomout_wide_request, frame, cad_ops, state, "cpu", draws)))
+    return state, jobs
+
+
+def zoomout_wide(online, state, jobs, dev, gpu_line: str) -> None:
+    """wide_shapes (c): ZoomOut above 64 features. zoomout_check's
+    well-conditioned refit at k 30 -> 96 on the first online frame's
+    128-eigenvector CAD (held there: C within 1e-4, the same and the
+    true matches); then one zoomout_wide_request per frame on the card
+    against the CPU's (zoomout_wide_jobs), with the same draws. A
+    request is determined, and held (the same candidate, 0 at
+    select_trigger 0, and flip; pose within 1 deg and 1 % of the
+    diameter), when its base map is strong on the CPU (SERVE_TRIGGER,
+    fixed before the run); else printed."""
+    zoomout_check([{**online[0], "cad_ops": jobs[0][1]}], dev, gpu_line,
+                  k=ZOOMOUT_WIDE_K)
+    failed = []
+    for f, cad_ops, ops_s, frame, draws, cpu in jobs:
+        a = zoomout_wide_request(frame, cad_ops, state, "cuda", draws)
+        cpu_s, b = cpu.result()
+        dr = rot_deg(a["R"], b["R"])
+        dt = float(np.linalg.norm(a["t"] - b["t"]) / f["diam"])
+        determined = (b["base_survivors"]
+                      >= SERVE_TRIGGER * b["valid_pc_points"])
+        same = (a["candidate"] == b["candidate"]
+                and a["flip_hypothesis"] == b["flip_hypothesis"])
+        emit("wide_shapes", part="c", obj=f["obj"], gpu=gpu_line,
+             zoomout_k=ZOOMOUT_WIDE_K, k_eig=ZOOMOUT_WIDE_EIG,
+             cad_operators_s=ops_s,
+             candidate=[a["candidate"], b["candidate"]],
+             flip_hypothesis=[a["flip_hypothesis"], b["flip_hypothesis"]],
+             rot_deg=dr, t_frac_diam=dt,
+             base_survivors=[a["base_survivors"], b["base_survivors"]],
+             valid_pc_points=b["valid_pc_points"],
+             determined=bool(determined),
+             ms={"cuda": a["ms"], "cpu": b["ms"]}, cpu_worker_s=cpu_s,
+             rot_err_deg=[rot_deg(x["R"], f["R_gt"]) for x in (a, b)],
+             tol="where determined (CPU base survivors >= 0.25 x valid PC "
+                 "points): the same candidate and flip, 1 deg, 1 % diam",
+             timing="host clock around one predict() (first call)")
+        if determined and not (same and dr <= 1.0 and dt <= 0.01):
+            failed.append(f["obj"])
+    if failed:
+        raise AssertionError(f"wide_shapes (c): card and CPU disagree on "
+                             f"determined ZoomOut-96 requests {failed}")
+
+
+def wide_shapes(resolves: dict, items, frames, online, model, dev,
+                gpu_line: str) -> dict:
+    """The kernel shapes above the configurations of config/ that the
+    JAX package's entry points reach, on their paths: (a) resolve at
+    top-k 24 and 32 (run in model_selection: its card-vs-CPU rows and
+    launches printed here), (b) wide_head_models, (c) zoomout_wide. The
+    launch counts of (b) and (c) are set to 0 before them and read after;
+    every new instance must launch on its path: the four wide-head
+    (dim, heads) forward and backward instances in (b), the chunked
+    (C > 64) argmin and top-5 in (c), the wide top-k and the
+    two-row-group rank-major sums at k = 24 and 32 in (a). Returns (b)
+    and (c)'s launch counts plus (a)'s."""
+    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from pose6d_tpu_torch.ops.kernels._build import (LAUNCHES_BY_INSTANCE,
+                                                     instance_label)
+    t0 = time.perf_counter()
+    state, jobs = zoomout_wide_jobs(online, model)     # CPU sides start
+    reset_launches()
+    wide_head_models(items, frames, dev, gpu_line)
+    zoomout_wide(online, state, jobs, dev, gpu_line)
+    counts = dict(LAUNCHES)
+    by_instance = {instance_label(k): v
+                   for k, v in LAUNCHES_BY_INSTANCE.items()}
+    want = [f"{kern} {gnn // heads}x{heads}"
+            for gnn, heads in WIDE_HEAD_MODELS.values()
+            for kern in ("flash_cross_attention",
+                         "flash_cross_attention_backward")]
+    want += ["masked_argmin_cdist 1xchunked", "masked_topk_cdist 5xchunked"]
+    missing = [w for w in want if not by_instance.get(w)]
+    for label, k in (("topk24", 24), ("topk32", 32)):
+        got = resolves[label]["launches_by_instance"]
+        missing += [w for w in (f"masked_topk_cdist {k}xwide",
+                                f"consistency_sum_rank_major {k}")
+                    if not got.get(w)]
+        for name in counts:
+            counts[name] += resolves[label]["launches"][name]
+    emit("wide_shapes", part="launches", gpu=gpu_line,
+         b_and_c_by_instance=by_instance,
+         a_by_instance={label: r["launches_by_instance"]
+                        for label, r in resolves.items()},
+         a_resolves={label: {k: v for k, v in r.items()
+                             if k not in ("launches",
+                                          "launches_by_instance")}
+                     for label, r in resolves.items()},
+         total=counts, phase_s=time.perf_counter() - t0,
+         note="(a) resolve --topk 24 / 32 runs in model_selection (card on "
+              "both sets; CPU on the first file, RESOLVE_CPU_FILES)")
+    missing += [n for n in PATH_KERNELS["wide_shapes"] if not counts[n]]
+    if missing:
+        raise AssertionError(f"wide_shapes: not launched: {missing}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4538,7 +4951,9 @@ def run_all() -> int:
     cli_pose(results_dir, avg)
     pose_checks()
     paths["cli"] = cli_workflow(gpu_line)
-    paths["model_selection"] = model_selection(gpu_line)
+    paths["model_selection"], wide_resolves = model_selection(gpu_line)
+    paths["wide_shapes"] = wide_shapes(wide_resolves, items, frames, online,
+                                       model, dev, gpu_line)
     paths["data_parallel"] = data_parallel(train_repeat(gpu_line), gpu_line)
     zoomout_check(frames, dev, gpu_line)
     zoomout_sensitivity(eval_items, gpu_line)
@@ -4559,7 +4974,7 @@ def run_all() -> int:
                      **{k: row[k] for k in keys},
                      **{k: row[k] for k in ("b1", "c64", "call_ms",
                                             "bound_tc_ms", "instances",
-                                            "by_k")
+                                            "by_k", "wide_c")
                         if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)

@@ -2,18 +2,24 @@
 //
 // Replaces the TPU kernel pose6d_tpu/ops/pallas/attention.py:30
 // flash_cross_attention (which wraps JAX's library Pallas flash
-// attention, pads head_dim 16 -> 128 and folds the key mask into a
-// -1e9 bias channel). Here the key-validity mask comes in directly and
-// there is no padding. Layout is the refiner's (dim, heads) channel
-// split: q (B, N, DIM, H), k/v (B, M, DIM, H), out (B, N, DIM, H);
-// channel c of a projection is c = d * H + h. The scale is 1/sqrt(DIM).
-// Instances: DIM = 16 with H = 1 or 2, and DIM = 32 with H = 1 (the
-// `double` refiner: 64 / 2 or 128 / 4 channels per head), at most 32
-// floats a token. For DIM x H > 32 (4 heads of 16, 2 or 4 heads of 32)
-// the wrapper (ops/kernels/attention.py) lays each head out as a frame of
-// its own, (B H, N, DIM, 1), so a thread's q and accumulator rows stay at
-// 64 floats each (a 4-head instance of 16 ran slower than the fold on an
-// H100; PERF.md).
+// attention, pads head_dim to 128 and folds the key mask into a
+// -1e9 bias channel). Here the key-validity mask comes in directly. Layout
+// is the refiner's (dim, heads) channel split: q (B, N, DIM, H), k/v
+// (B, M, DIM, H), out (B, N, DIM, H); channel c of a projection is
+// c = d * H + h. The scale is the caller's (1/sqrt(the caller's dim)).
+// Instances: DIM = 16 with H = 1 or 2, and DIM = 32, 64 and 128 with
+// H = 1. The wrapper (ops/kernels/attention.py) zero-pads a caller's head
+// dim up to the smallest instance dim (zero channels change neither
+// q . k nor the kept part of the output, which it slices back), and for
+// DIM x H > 32 (4 heads of 16, 2 or 4 heads of 32, 3 or 8 heads, every
+// head of 64 or 128) lays each head out as a frame of its own, (B H, N,
+// DIM, 1), so a thread's q and accumulator rows stay at 64 floats each (a
+// 4-head instance of 16 ran slower than the fold on an H100; PERF.md).
+// At DIM = 128 two threads share a query, 64 channels each (float4
+// groups 2 i and 2 i + 1: neighbouring 16 bytes of a key, no bank
+// conflict), and add their partial dot products with one
+// __shfl_xor_sync; both then hold the same score (a + b == b + a) and
+// run the same online softmax.
 // A query row with no valid key returns zeros, as masked_softmax does
 // on the XLA branch.
 //
@@ -59,12 +65,19 @@
 //   segment order, so every launch gives the same bits. A segment
 //   without a valid key merges as (-inf, 0, 0) with weight 0; a row
 //   whose segments are all empty gets zeros and lse = -inf.
-// - f32 FMAs and expf throughout, as the plain version computes it. At
-//   DIM = 16 q is multiplied by the scale once, at load: exact for
-//   1/sqrt(16) = 0.25. At DIM = 32 the scale 1/sqrt(32) is not a power of
-//   two, so each score is scaled after its dot product, (q . k) * scale,
-//   in the plain version's order: one FMUL per (query, key), ~1/33 of the
-//   step's arithmetic.
+// - f32 FMAs and expf throughout, as the plain version computes it.
+//   Where the scale is a power of two (1/sqrt(16) = 0.25, 1/sqrt(64),
+//   1/sqrt(4); frexp's mantissa 0.5, decided by the wrapper on the
+//   caller's scale, never on the instance's DIM, and refused by the C
+//   entry for any other scale) q is multiplied by it
+//   once, at load, which is exact: every score comes out as
+//   (q . k) * scale does. Otherwise (1/sqrt(8) for a dim-8 call padded
+//   to the DIM = 16 instance, 1/sqrt(32), 1/sqrt(128)) each score is
+//   scaled after its dot product, in the plain version's order: one FMUL
+//   per (query, key), ~1/33 of the step's arithmetic.
+// - K and V tiles live in dynamic shared memory (64 KB at DIM = 128,
+//   above the 48 KB of a static array; cudaFuncSetAttribute once per
+//   instance).
 //
 // C interface (ctypes): returns cudaGetLastError() after the launches.
 
@@ -80,21 +93,32 @@ constexpr int kTK = 32;            // keys per staged tile: one bit each
 constexpr int kMaxSegTiles = 256;  // key tiles one segment can walk
 constexpr int kCombineThreads = 128;
 
-// Per (head dim, head count): queries per thread (kQpt x H (query, head)
-// rows of DIM floats: 64 floats of q and of accumulator a thread) and keys
-// per online-softmax step; whether q is pre-scaled (exact only for a
-// power-of-two scale).
+// Per (head dim, head count): kSplit threads share a query (64 channels
+// each at DIM x H = 128), each thread owning kQpt queries (kQpt x H
+// (query, head) rows: 64 floats of q and of accumulator a thread) and
+// kChan channels of each; keys per online-softmax step.
 template <int DIM, int H>
 struct Tiling {
-  static constexpr int kQpt = 64 / (DIM * H), kCK = 8;
-  static constexpr bool kPreScale = DIM == 16;
+  static constexpr int kTok = DIM * H;
+  static constexpr int kSplit = kTok > 64 ? kTok / 64 : 1;
+  static constexpr int kChan = kTok / kSplit;
+  static constexpr int kQpt = kTok >= 64 ? 1 : 64 / kTok, kCK = 8;
+  static_assert(kSplit == 1 || H == 1, "split queries have one head");
 };
 template <int DIM, int H>
-constexpr int kQueriesPerBlock = kThreads * Tiling<DIM, H>::kQpt;
+constexpr int kQueriesPerBlock =
+    kThreads * Tiling<DIM, H>::kQpt / Tiling<DIM, H>::kSplit;
+
+// Dynamic shared memory of an instance: K and V tiles (two buffers
+// each), then the segment's key-tile words.
+template <int DIM, int H>
+constexpr int kSmemBytes =
+    (4 * kTK * DIM * H) * (int)sizeof(float) + kMaxSegTiles * 4;
 
 // grid (ceil(N / kQueriesPerBlock), segments, B). With one segment the
 // block writes out (and lse); with more it writes its partial state.
-template <int DIM, int H>
+// kPreScale: the scale is a power of two, so q is scaled at load.
+template <int DIM, int H, bool kPreScale>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -102,16 +126,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ out, float* __restrict__ lse,
                  float* __restrict__ part_acc, float* __restrict__ part_ml,
                  int n, int m, int segments, float scale) {
-  constexpr int kTok = DIM * H, kVec = kTok / 4;
-  constexpr int kQ = Tiling<DIM, H>::kQpt, kCK = Tiling<DIM, H>::kCK;
-  constexpr bool kPreScale = Tiling<DIM, H>::kPreScale;
+  using T = Tiling<DIM, H>;
+  constexpr int kTok = T::kTok, kSplit = T::kSplit, kChan = T::kChan;
+  constexpr int kVec = kChan / 4;  // float4 of a thread's channels
+  constexpr int kQ = T::kQpt, kCK = T::kCK;
   const float qscale = kPreScale ? scale : 1.f;
-  __shared__ __align__(16) float ks[2][kTK][kTok];
-  __shared__ __align__(16) float vs[2][kTK][kTok];
-  __shared__ unsigned words[kMaxSegTiles];
+  extern __shared__ __align__(16) float smem[];
+  float (*ks)[kTK][kTok] = reinterpret_cast<float (*)[kTK][kTok]>(smem);
+  float (*vs)[kTK][kTok] =
+      reinterpret_cast<float (*)[kTK][kTok]>(smem + 2 * kTK * kTok);
+  unsigned* words = reinterpret_cast<unsigned*>(smem + 4 * kTK * kTok);
 
   const int batch = blockIdx.z, seg = blockIdx.y;
-  const int qbase = blockIdx.x * kQueriesPerBlock<DIM, H> + threadIdx.x;
+  // the thread's share: float4 groups c4 * kSplit + part of the token
+  const int part = threadIdx.x % kSplit;
+  const int qbase =
+      blockIdx.x * kQueriesPerBlock<DIM, H> + threadIdx.x / kSplit;
+  constexpr int kRowStep = kThreads / kSplit;
   const float* kb = k + (size_t)batch * m * kTok;
   const float* vb = v + (size_t)batch * m * kTok;
   const unsigned char* mb = kv_valid + (size_t)batch * m;
@@ -130,24 +161,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     words[i] = wd;
   }
 
-  float qr[kQ][kTok], acc[kQ][kTok], mx[kQ][H], sm[kQ][H];
+  float qr[kQ][kChan], acc[kQ][kChan], mx[kQ][H], sm[kQ][H];
 #pragma unroll
   for (int qi = 0; qi < kQ; ++qi) {
-    const int row = qbase + qi * kThreads;
+    const int row = qbase + qi * kRowStep;
     const float4* qv =
         reinterpret_cast<const float4*>(q + ((size_t)batch * n + row) * kTok);
 #pragma unroll
     for (int c4 = 0; c4 < kVec; ++c4) {
-      // q pre-scaled at DIM = 16: for scale 1/sqrt(16) = 0.25, a power of
-      // two, every score comes out as (q . k) * scale does, bit for bit
-      const float4 t = row < n ? qv[c4] : make_float4(0, 0, 0, 0);
+      // q pre-scaled by a power-of-two scale: every score comes out as
+      // (q . k) * scale does, bit for bit
+      const float4 t =
+          row < n ? qv[c4 * kSplit + part] : make_float4(0, 0, 0, 0);
       qr[qi][4 * c4 + 0] = t.x * qscale;
       qr[qi][4 * c4 + 1] = t.y * qscale;
       qr[qi][4 * c4 + 2] = t.z * qscale;
       qr[qi][4 * c4 + 3] = t.w * qscale;
     }
 #pragma unroll
-    for (int c = 0; c < kTok; ++c) acc[qi][c] = 0.f;
+    for (int c = 0; c < kChan; ++c) acc[qi][c] = 0.f;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       mx[qi][h] = -INFINITY;
@@ -156,10 +188,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();  // words[] complete
 
+  constexpr int kTokVec = kTok / 4;
   auto stage = [&](int i, int buf) {
     const int j0 = (seg + i * segments) * kTK;
-    for (int e = threadIdx.x; e < kTK * kVec; e += kThreads) {
-      const int jj = e / kVec, c4 = e % kVec, j = j0 + jj;
+    for (int e = threadIdx.x; e < kTK * kTokVec; e += kThreads) {
+      const int jj = e / kTokVec, c4 = e % kTokVec, j = j0 + jj;
       const bool ok = j < m;
       const size_t off = (size_t)(ok ? j : 0) * kTok + c4 * 4;
       async_copy::copy16(&ks[buf][jj][c4 * 4], kb + off, ok);
@@ -194,13 +227,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int jj = 0; jj < kCK; ++jj) s[qi][h][jj] = 0.f;
         }
       }
-      // scaled scores: per (query, head) an FMA chain over d in order
+      // scaled scores: per (query, head) an FMA chain over the thread's
+      // channels in order
 #pragma unroll
       for (int jj = 0; jj < kCK; ++jj) {
 #pragma unroll
         for (int c4 = 0; c4 < kVec; ++c4) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(&ks[buf][c0 + jj][4 * c4]);
+          const float4 kv = *reinterpret_cast<const float4*>(
+              &ks[buf][c0 + jj][4 * (c4 * kSplit + part)]);
           const float kc[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
           for (int qi = 0; qi < kQ; ++qi) {
@@ -209,6 +243,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const int ch = 4 * c4 + t;
               s[qi][ch % H][jj] = fmaf(qr[qi][ch], kc[t], s[qi][ch % H][jj]);
             }
+          }
+        }
+      }
+      if constexpr (kSplit > 1) {
+        // the query's partial dot products over its threads (lanes
+        // differing in the low bits); every thread gets the same sum
+#pragma unroll
+        for (int off = 1; off < kSplit; off <<= 1) {
+#pragma unroll
+          for (int qi = 0; qi < kQ; ++qi) {
+#pragma unroll
+            for (int jj = 0; jj < kCK; ++jj)
+              s[qi][0][jj] +=
+                  __shfl_xor_sync(0xffffffffu, s[qi][0][jj], off);
           }
         }
       }
@@ -229,7 +277,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float corr = expf(mx[qi][h] - nm);  // 0 on the first step
           sm[qi][h] *= corr;
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) acc[qi][d * H + h] *= corr;
+          for (int d = 0; d < kChan / H; ++d) acc[qi][d * H + h] *= corr;
 #pragma unroll
           for (int jj = 0; jj < kCK; ++jj) {
             const float p = expf(s[qi][h][jj] - nm);  // 0 for masked keys
@@ -243,8 +291,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < kCK; ++jj) {
 #pragma unroll
         for (int c4 = 0; c4 < kVec; ++c4) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&vs[buf][c0 + jj][4 * c4]);
+          const float4 vv = *reinterpret_cast<const float4*>(
+              &vs[buf][c0 + jj][4 * (c4 * kSplit + part)]);
           const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
           for (int qi = 0; qi < kQ; ++qi) {
@@ -264,7 +312,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int qi = 0; qi < kQ; ++qi) {
-    const int row = qbase + qi * kThreads;
+    const int row = qbase + qi * kRowStep;
     if (row >= n) continue;
     const size_t r = (size_t)batch * n + row;
     if (segments == 1) {
@@ -276,12 +324,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c4 = 0; c4 < kVec; ++c4) {
         const int c = 4 * c4;
-        o[c4] = make_float4(acc[qi][c] * inv[c % H],
-                            acc[qi][c + 1] * inv[(c + 1) % H],
-                            acc[qi][c + 2] * inv[(c + 2) % H],
-                            acc[qi][c + 3] * inv[(c + 3) % H]);
+        o[c4 * kSplit + part] = make_float4(
+            acc[qi][c] * inv[c % H], acc[qi][c + 1] * inv[(c + 1) % H],
+            acc[qi][c + 2] * inv[(c + 2) % H],
+            acc[qi][c + 3] * inv[(c + 3) % H]);
       }
-      if (lse != nullptr) {
+      if (lse != nullptr && part == 0) {
 #pragma unroll
         for (int h = 0; h < H; ++h)
           lse[r * H + h] =
@@ -293,13 +341,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c4 = 0; c4 < kVec; ++c4) {
         const int c = 4 * c4;
-        pa[c4] = make_float4(acc[qi][c], acc[qi][c + 1], acc[qi][c + 2],
-                             acc[qi][c + 3]);
+        pa[c4 * kSplit + part] = make_float4(acc[qi][c], acc[qi][c + 1],
+                                             acc[qi][c + 2], acc[qi][c + 3]);
       }
+      if (part == 0) {
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
-        part_ml[pr * 2 * H + 2 * h] = mx[qi][h];
-        part_ml[pr * 2 * H + 2 * h + 1] = sm[qi][h];
+        for (int h = 0; h < H; ++h) {
+          part_ml[pr * 2 * H + 2 * h] = mx[qi][h];
+          part_ml[pr * 2 * H + 2 * h + 1] = sm[qi][h];
+        }
       }
     }
   }
@@ -361,7 +411,20 @@ flash_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <int DIM, int H>
+// The kernel of an instance with its dynamic shared memory allowed (once).
+template <int DIM, int H, bool kPreScale>
+const void* prepared() {
+  static const bool done = [] {
+    cudaFuncSetAttribute(flash_fwd_kernel<DIM, H, kPreScale>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSmemBytes<DIM, H>);
+    return true;
+  }();
+  (void)done;
+  return reinterpret_cast<const void*>(flash_fwd_kernel<DIM, H, kPreScale>);
+}
+
+template <int DIM, int H, bool kPreScale>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* valid, float* out, float* lse,
            float* part_acc, float* part_ml, int batch, int n, int m,
@@ -370,10 +433,13 @@ int launch(const float* q, const float* k, const float* v,
   if ((tiles + segments - 1) / segments > kMaxSegTiles ||
       (segments > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  prepared<DIM, H, kPreScale>();
   dim3 grid((n + kQueriesPerBlock<DIM, H> - 1) / kQueriesPerBlock<DIM, H>,
             segments, batch);
-  flash_fwd_kernel<DIM, H><<<grid, kThreads, 0, stream>>>(
-      q, k, v, valid, out, lse, part_acc, part_ml, n, m, segments, scale);
+  flash_fwd_kernel<DIM, H, kPreScale>
+      <<<grid, kThreads, kSmemBytes<DIM, H>, stream>>>(
+          q, k, v, valid, out, lse, part_acc, part_ml, n, m, segments,
+          scale);
   if (segments > 1) {
     const int total = batch * n * (DIM * H / 4);
     flash_combine_kernel<DIM, H>
@@ -383,13 +449,28 @@ int launch(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Both pre-scale variants share the tiling; the planner asks for the one
+// without (the two take the same registers but for the scale's FMUL).
 template <int DIM, int H>
 int tiles(int* out) {
   out[0] = kQueriesPerBlock<DIM, H>;
   out[1] = kTK;
   out[2] = kMaxSegTiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], flash_fwd_kernel<DIM, H>, kThreads, 0));
+      &out[3], prepared<DIM, H, false>(), kThreads, kSmemBytes<DIM, H>));
+}
+
+template <int DIM, int H>
+int launch_scaled(bool pow2, const float* q, const float* k, const float* v,
+                  const unsigned char* valid, float* out, float* lse,
+                  float* part_acc, float* part_ml, int batch, int n, int m,
+                  int segments, float scale, cudaStream_t stream) {
+  return pow2 ? launch<DIM, H, true>(q, k, v, valid, out, lse, part_acc,
+                                     part_ml, batch, n, m, segments, scale,
+                                     stream)
+              : launch<DIM, H, false>(q, k, v, valid, out, lse, part_acc,
+                                      part_ml, batch, n, m, segments, scale,
+                                      stream);
 }
 
 }  // namespace
@@ -399,30 +480,30 @@ int tiles(int* out) {
 // blocks per SM on this card}. Non-zero for an instance the kernel does
 // not have.
 extern "C" int flash_cross_attention_tiles(int dim, int heads, int* out) {
-  if (dim == 32)
-    return heads == 1 ? tiles<32, 1>(out)
-                      : static_cast<int>(cudaErrorInvalidValue);
-  if (dim != 16) return static_cast<int>(cudaErrorInvalidValue);
-  switch (heads) {
-    case 1: return tiles<16, 1>(out);
-    case 2: return tiles<16, 2>(out);
+  if (heads == 2 && dim == 16) return tiles<16, 2>(out);
+  if (heads != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dim) {
+    case 16: return tiles<16, 1>(out);
+    case 32: return tiles<32, 1>(out);
+    case 64: return tiles<64, 1>(out);
+    case 128: return tiles<128, 1>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // q (B, N, dim, H), k/v (B, M, dim, H) f32 and kv_valid (B, M) bytes
-// (dim 16 with H 1 or 2; dim 32 with H 1),
-// contiguous, 16-byte aligned. With segments > 1: part_acc (B, segments,
-// N, dim * H) and part_ml (B, segments, N, H, 2) f32 scratch.
+// (dim 16 with H 1 or 2; dim 32, 64 or 128 with H 1), contiguous, 16-byte
+// aligned. With segments > 1: part_acc (B, segments, N, dim * H) and
+// part_ml (B, segments, N, H, 2) f32 scratch. prescale: q is scaled at
+// load (the scale must be a power of two).
 extern "C" int flash_cross_attention_f32(const void* q, const void* k,
                                          const void* v, const void* kv_valid,
                                          void* out, void* lse, void* part_acc,
                                          void* part_ml, int batch, int n,
                                          int m, int dim, int heads,
                                          int segments, float scale,
-                                         void* stream) {
-  if ((dim != 16 && dim != 32) || segments < 1 || batch < 1 || n < 1 ||
-      m < 1)
+                                         int prescale, void* stream) {
+  if (segments < 1 || batch < 1 || n < 1 || m < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -433,18 +514,23 @@ extern "C" int flash_cross_attention_f32(const void* q, const void* k,
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 32)
-    return heads == 1 ? launch<32, 1>(qf, kf, vf, mf, of, lf, pa, pm, batch,
-                                      n, m, segments, scale, s)
-                      : static_cast<int>(cudaErrorInvalidValue);
-  switch (heads) {
-    case 1:
-      return launch<16, 1>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m,
-                           segments, scale, s);
-    case 2:
-      return launch<16, 2>(qf, kf, vf, mf, of, lf, pa, pm, batch, n, m,
-                           segments, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  // q scaled at load (prescale != 0) only for a power-of-two scale
+  // (mantissa 0.5), where it is exact
+  int e2 = 0;
+  const bool pow2 = prescale != 0;
+  if (pow2 && frexpf(scale, &e2) != 0.5f)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_LAUNCH(D, H)                                                  \
+  launch_scaled<D, H>(pow2, qf, kf, vf, mf, of, lf, pa, pm, batch, n, m,    \
+                      segments, scale, s)
+  if (heads == 2 && dim == 16) return FLASH_LAUNCH(16, 2);
+  if (heads != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dim) {
+    case 16: return FLASH_LAUNCH(16, 1);
+    case 32: return FLASH_LAUNCH(32, 1);
+    case 64: return FLASH_LAUNCH(64, 1);
+    case 128: return FLASH_LAUNCH(128, 1);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_LAUNCH
 }

@@ -8,15 +8,27 @@
 // training step (pose6d_tpu/train/train_step.py:83), once for each
 // direction of the refiner. Layout as the forward
 // (flash_cross_attention.cu): q, dq, out, dout (B, N, DIM, H); k, v,
-// dk, dv (B, M, DIM, H); channel c = d * H + h; scale 1/sqrt(DIM).
-// Instances: DIM = 16 with H = 1 or 2, and DIM = 32 with H = 1; for
-// DIM x H > 32 the wrapper lays each head out as a frame of its own, as
-// for the forward (a 4-head instance of 16 spilled registers at its 255
-// and ran slower than the fold on an H100; PERF.md). A
+// dk, dv (B, M, DIM, H); channel c = d * H + h; the caller's scale.
+// Instances: DIM = 16 with H = 1 or 2, and DIM = 32, 64 and 128 with
+// H = 1; the wrapper pads a caller's head dim to the smallest instance
+// dim and, for DIM x H > 32, lays each head out as a frame of its own,
+// as for the forward (a 4-head instance of 16 spilled registers at its
+// 255 and ran slower than the fold on an H100; PERF.md). A
 // product over DIM takes DIM / 8 k-steps of m16n8k8 and an update DIM / 8
 // n-tiles of 8 columns, so the DIM = 32, H = 1 instance holds as many
 // fragments and accumulators as the DIM = 16, H = 2 one (two heads of two
 // k-steps each).
+// DIM = 64 and 128: kSplit = DIM / 32 warps share a group of 16 rows,
+// each holding the fragments and accumulators of 32 of the dims, the
+// DIM = 32 warp's registers (those of the exchange below made ptxas
+// spill at the 168 of three blocks an SM, so these take two: 255). Per chunk of 8 walked rows each warp's s and dout . v are partial
+// sums over its dims; the group's warps write them to shared memory
+// (two buffers), meet at a named barrier (bar.sync 1 + group, 32 kSplit
+// threads) and each adds the kSplit partials in warp order, so every
+// warp of the group holds the same bits of s and dout . v, and so of P
+// and dS. Each then updates its own 32 columns of dq (or dk, dv). A block
+// is 4 warps: 32 rows at DIM = 64, 16 at DIM = 128 (the wrapper plans
+// with the rows per block the build reports).
 //
 // FlashAttention-2 style recomputation from the forward's log-sum-exp
 // L (B, N, H): the (H, N, M) probabilities are never stored.
@@ -30,8 +42,8 @@
 //          of 32 queries a word with a bit for each live row (dout not
 //          all zero and L finite). A row that is not live gets L = +inf,
 //          so its p is exactly 0: never exp(+inf).
-//   dq   : a block of kRows queries (both heads) walks the key tiles;
-//   dkv  : a block of kRows keys (both heads) walks the query tiles;
+//   dq   : a block of kRowsBlk queries (all heads) walks the key tiles;
+//   dkv  : a block of kRowsBlk keys (all heads) walks the query tiles;
 //   merge: when the walk is split across blocks, the segments' partial
 //          dq (or dk, dv) added in segment order.
 // Each block sums its own rows in a fixed order and nothing is added
@@ -101,7 +113,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // queries per dq block, keys per dkv
+constexpr int kRows = 16 * kWarps;  // the query padding unit (npad)
 constexpr int kTile = 32;           // walked rows per tile: one mask bit each
 constexpr int kMaxSegTiles = 256;   // tiles one segment can walk
 constexpr int kFlatThreads = 128;   // prep and merge passes
@@ -112,14 +124,31 @@ struct Shape {
   static constexpr int kTok = DIM * H;      // floats per token
   static constexpr int kStride = kTok + 4;  // shared row stride
   static constexpr int kVec = kTok / 4;     // float4 per token
-  // k-steps of a product over DIM, and n-tiles (of 8 columns) of an
-  // update: both DIM / 8
-  static constexpr int kSteps = DIM / 8;
-  // a lane's share of a token: 2 kSteps consecutive d of each head
+  // warps sharing a group of 16 rows, each over kDW of the dims
+  static constexpr int kSplit = kTok > 32 ? kTok / 32 : 1;
+  static constexpr int kDW = DIM / kSplit;
+  static_assert(kSplit == 1 || H == 1, "split rows have one head");
+  // rows a block owns (queries of the dq kernel, keys of the dkv kernel)
+  static constexpr int kRowsBlk = 16 * kWarps / kSplit;
+  // k-steps of a product over a warp's dims, and n-tiles (of 8 columns)
+  // of an update: both kDW / 8
+  static constexpr int kSteps = kDW / 8;
+  // a lane's share of a warp's dims of a token: 2 kSteps consecutive d of
+  // each head
   static constexpr int kPart = 2 * kSteps * H;
+  // dynamic shared memory: two buffers of two operand tiles, the
+  // segment's words, the (L, D) tiles of the dkv kernel, the split
+  // warps' partial s and dout . v (two buffers of 8 floats a lane)
+  static constexpr int kTileFloats = 2 * kTile * kStride;
+  static constexpr int kXch = kSplit > 1 ? 2 * kWarps * 32 * 8 : 0;
+  static constexpr int kSmemBytes =
+      (2 * kTileFloats + 2 * kTile * 2 * H + kXch) * 4 + kMaxSegTiles * 4;
 };
-// three blocks per SM: registers capped at 168
-constexpr int kMinBlocks = 3;
+// three blocks per SM: registers capped at 168; the split instances'
+// exchange takes a few more (they spilled at 168 on an H100), so two
+// (255)
+template <int DIM, int H>
+constexpr int kMinBlocks = Shape<DIM, H>::kSplit > 1 ? 2 : 3;
 
 // Walks a segment's live tiles (words[i] != 0 for i < nt) through two
 // shared buffers: stage(i, buf) issues tile i's copies, body(i, buf)
@@ -278,15 +307,16 @@ __device__ __forceinline__ void frag_rows(
              r8[(2 * s + 1) * H + h]);
 }
 
-// A lane's share of one token, kPart floats from channel kPart t on, from
-// device memory; zeros for a row past the end.
+// A lane's share of one token, kPart floats from channel sl + kPart t on
+// (sl: the warp's first channel), from device memory; zeros for a row past
+// the end.
 template <int DIM, int H>
 __device__ __forceinline__ void token_part(
-    const float* base, int row, int rows, int t,
+    const float* base, int row, int rows, int t, int sl,
     float (&v)[Shape<DIM, H>::kPart]) {
   constexpr int kPart = Shape<DIM, H>::kPart;
   if (row < rows) {
-    load(base + (size_t)row * Shape<DIM, H>::kTok + kPart * t, v);
+    load(base + (size_t)row * Shape<DIM, H>::kTok + sl + kPart * t, v);
   } else {
 #pragma unroll
     for (int i = 0; i < kPart; ++i) v[i] = 0.f;
@@ -295,7 +325,8 @@ __device__ __forceinline__ void token_part(
 
 // Per (frame, query): ld = (L log2 e or +inf, D) per head, and the tile's
 // live word. One thread per query of npad (N rounded up to kRows) per
-// frame, so a warp is one tile; rows past N get (+inf, 0).
+// frame, so a warp is one tile; rows past N get (+inf, 0). D is an FMA
+// chain over the token's channels in order, read a float4 at a time.
 template <int DIM, int H>
 __global__ void __launch_bounds__(kFlatThreads)
 flash_bwd_prep_kernel(const float* __restrict__ out,
@@ -313,14 +344,17 @@ flash_bwd_prep_kernel(const float* __restrict__ out,
   for (int h = 0; h < H; ++h) D[h] = 0.f;
   if (i < n) {
     const size_t r = ((size_t)batch * n + i) * kTok;
-    float o[kTok], g[kTok];
-    load(out + r, o);
-    load(dout + r, g);
-    // per head an FMA chain over d in order
+#pragma unroll 4
+    for (int c4 = 0; c4 < kTok / 4; ++c4) {
+      float o[4], g[4];
+      load(out + r + 4 * c4, o);
+      load(dout + r + 4 * c4, g);
+      // per head an FMA chain over d in order
 #pragma unroll
-    for (int c = 0; c < kTok; ++c) {
-      D[c % H] = fmaf(g[c], o[c], D[c % H]);
-      nonzero |= g[c] != 0.f;  // true for NaN
+      for (int e = 0; e < 4; ++e) {
+        D[(4 * c4 + e) % H] = fmaf(g[e], o[e], D[(4 * c4 + e) % H]);
+        nonzero |= g[e] != 0.f;  // true for NaN
+      }
     }
   }
   bool live = false;
@@ -357,11 +391,11 @@ __device__ __forceinline__ void key_words(const unsigned char* mb, int m,
 // Writes rows r and r + 8 of a warp's (dim x head) accumulators,
 // acc[h][n-tile][4] in m16n8 layout (columns d = kSteps g' + n-tile),
 // times `mul`; zeros where `zero`. Lane (g, t) holds d = 2 kSteps t ..
-// 2 kSteps t + 2 kSteps - 1 of both rows: channels kPart t .. kPart t +
-// kPart - 1.
+// 2 kSteps t + 2 kSteps - 1 of both rows: channels sl + kPart t .. sl +
+// kPart t + kPart - 1.
 template <int DIM, int H>
 __device__ __forceinline__ void write_rows(
-    float* base, int row, int rows, int t,
+    float* base, int row, int rows, int t, int sl,
     const float (&acc)[H][Shape<DIM, H>::kSteps][4], float mul, bool zero0,
     bool zero8) {
   constexpr int kSteps = Shape<DIM, H>::kSteps, kPart = Shape<DIM, H>::kPart;
@@ -385,15 +419,60 @@ __device__ __forceinline__ void write_rows(
 #pragma unroll
       for (int e = 0; e < kPart; ++e) v[e] = 0.f;
     }
-    store(base + (size_t)r * Shape<DIM, H>::kTok + kPart * t, v);
+    store(base + (size_t)r * Shape<DIM, H>::kTok + sl + kPart * t, v);
   }
 }
 
-// grid (ceil(N / kRows), segments, B). With one segment the block writes
-// dq (times scale); with more, its partial sum goes to
+// A split instance's s and dout . v (a warp's accumulator entries, each
+// a partial sum over its dims) summed over the kSplit warps of its row
+// group, in warp order, through xch [2][kWarps][32][8] (buffer `par`,
+// flipped per call); every warp of the group gets the same bits. A no-op
+// without a split.
+template <int DIM, int H>
+__device__ __forceinline__ void group_sum(float* xch, int& par,
+                                          float (&s)[4], float (&dp)[4]) {
+  constexpr int kSplit = Shape<DIM, H>::kSplit;
+  if constexpr (kSplit > 1) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int first = warp / kSplit * kSplit;
+    float4* mine = reinterpret_cast<float4*>(
+        xch + ((par * kWarps + warp) * 32 + lane) * 8);
+    mine[0] = make_float4(s[0], s[1], s[2], s[3]);
+    mine[1] = make_float4(dp[0], dp[1], dp[2], dp[3]);
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + warp / kSplit),
+                 "r"(32 * kSplit)
+                 : "memory");
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplit; ++w) {
+      const float4* x = reinterpret_cast<const float4*>(
+          xch + ((par * kWarps + first + w) * 32 + lane) * 8);
+      const float4 a = x[0], b = x[1];
+      s[0] += a.x;
+      s[1] += a.y;
+      s[2] += a.z;
+      s[3] += a.w;
+      dp[0] += b.x;
+      dp[1] += b.y;
+      dp[2] += b.z;
+      dp[3] += b.w;
+    }
+    par ^= 1;
+  }
+}
+
+// The 16-bit live word of rows r .. r + 15 (r a multiple of 16) of one
+// frame's query words.
+__device__ __forceinline__ unsigned rows16(const unsigned* qw, int r) {
+  return (qw[r / kTile] >> (r % kTile)) & 0xffffu;
+}
+
+// grid (ceil(N / kRowsBlk), segments, B). With one segment the block
+// writes dq (times scale); with more, its partial sum goes to
 // dq_out[(batch * segments + seg) * N ...].
 template <int DIM, int H>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DIM, H>)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const unsigned char* __restrict__ kv_valid,
@@ -404,23 +483,28 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int segments, float scale_log2e, float mul) {
   using S = Shape<DIM, H>;
   constexpr int kTok = S::kTok, kStride = S::kStride, kVec = S::kVec;
-  constexpr int kSteps = S::kSteps, kPart = S::kPart;
-  __shared__ __align__(16) float ks[2][kTile][kStride];
-  __shared__ __align__(16) float vs[2][kTile][kStride];
-  __shared__ unsigned words[kMaxSegTiles];
+  constexpr int kSteps = S::kSteps, kPart = S::kPart, kSplit = S::kSplit;
+  extern __shared__ __align__(16) float smem[];
+  float (*ks)[kTile][kStride] =
+      reinterpret_cast<float (*)[kTile][kStride]>(smem);
+  float (*vs)[kTile][kStride] =
+      reinterpret_cast<float (*)[kTile][kStride]>(smem + S::kTileFloats);
+  float* xch = smem + 2 * S::kTileFloats + 2 * kTile * 2 * H;
+  unsigned* words = reinterpret_cast<unsigned*>(xch + S::kXch);
 
   const int batch = blockIdx.z, seg = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
-  const int i0 = blockIdx.x * kRows;
-  const int r0 = i0 + warp * 16;  // the warp's rows r0 + g, r0 + g + 8
+  const int i0 = blockIdx.x * S::kRowsBlk;
+  // the warp's rows r0 + g, r0 + g + 8, and its dims from channel sl
+  const int r0 = i0 + (warp / kSplit) * 16;
+  const int sl = (warp % kSplit) * S::kDW;
   float* ob = dq_out + ((size_t)batch * segments + seg) * n * kTok;
-  const unsigned* qw = qwords + (size_t)batch * (npad / kTile) + i0 / kTile;
+  const unsigned* qw = qwords + (size_t)batch * (npad / kTile);
   unsigned any = 0u;
 #pragma unroll
-  for (int w = 0; w < kRows / kTile; ++w) any |= qw[w];
-  // the warp's 16 rows are half of a 32-row word
-  const unsigned mine = (qw[warp / 2] >> (16 * (warp & 1))) & 0xffffu;
+  for (int r = 0; r < S::kRowsBlk; r += 16) any |= rows16(qw, i0 + r);
+  const unsigned mine = rows16(qw, r0);
 
   float acc[H][kSteps][4];
 #pragma unroll
@@ -431,7 +515,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[h][nt][e] = 0.f;
 
   if (any == 0u) {  // no live query: dq = 0 (uniform)
-    write_rows<DIM, H>(ob, r0 + g, n, t, acc, 0.f, false, false);
+    write_rows<DIM, H>(ob, r0 + g, n, t, sl, acc, 0.f, false, false);
     return;
   }
 
@@ -448,12 +532,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float a[kPart], a8[kPart];
     const float* qb = q + (size_t)batch * n * kTok;
     const float* db = dout + (size_t)batch * n * kTok;
-    token_part<DIM, H>(qb, r0 + g, n, t, a);
-    token_part<DIM, H>(qb, r0 + g + 8, n, t, a8);
+    token_part<DIM, H>(qb, r0 + g, n, t, sl, a);
+    token_part<DIM, H>(qb, r0 + g + 8, n, t, sl, a8);
 #pragma unroll
     for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, qf[h]);
-    token_part<DIM, H>(db, r0 + g, n, t, a);
-    token_part<DIM, H>(db, r0 + g + 8, n, t, a8);
+    token_part<DIM, H>(db, r0 + g, n, t, sl, a);
+    token_part<DIM, H>(db, r0 + g + 8, n, t, sl, a8);
 #pragma unroll
     for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, df[h]);
 #pragma unroll
@@ -479,27 +563,29 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       async_copy::copy16(&vs[buf][jj][c4 * 4], vb + off, ok);
     }
   };
+  int par = 0;
   walk(words, nt, stage, [&](int i, int buf) {
     const unsigned wd = words[i];
-    if (mine == 0u) return;  // uniform across the warp
+    if (mine == 0u) return;  // uniform across the warp and its row group
 #pragma unroll
     for (int c0 = 0; c0 < kTile; c0 += 8) {
       const unsigned cw = (wd >> c0) & 0xffu;
       // s and dout . v: B fragments from key row c0 + g, d = 2 kSteps t ..
       float kr[kPart], vr[kPart];
-      load(&ks[buf][c0 + g][kPart * t], kr);
-      load(&vs[buf][c0 + g][kPart * t], vr);
+      load(&ks[buf][c0 + g][sl + kPart * t], kr);
+      load(&vs[buf][c0 + g][sl + kPart * t], vr);
       // the dq update's B fragments: keys c0 + 2 t and c0 + 2 t + 1,
       // d = kSteps g + n-tile
       float ka[kSteps * H], kb2[kSteps * H];
-      load(&ks[buf][c0 + 2 * t][kSteps * g * H], ka);
-      load(&ks[buf][c0 + 2 * t + 1][kSteps * g * H], kb2);
+      load(&ks[buf][c0 + 2 * t][sl + kSteps * g * H], ka);
+      load(&ks[buf][c0 + 2 * t + 1][sl + kSteps * g * H], kb2);
       const bool m0 = (cw >> (2 * t)) & 1u, m1 = (cw >> (2 * t + 1)) & 1u;
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         float s[4], dp[4];
         product<DIM, H>(s, qf[h], kr, h);
         product<DIM, H>(dp, df[h], vr, h);
+        group_sum<DIM, H>(xch, par, s, dp);
         // accumulator (row g / g + 8, key 2 t / 2 t + 1); a masked key
         // gets exp2(-inf) = 0
         const float p0 = ex2(m0 ? fmaf(s[0], scale_log2e, -Lr[0][h])
@@ -519,14 +605,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   });
-  write_rows<DIM, H>(ob, r0 + g, n, t, acc, mul, false, false);
+  write_rows<DIM, H>(ob, r0 + g, n, t, sl, acc, mul, false, false);
 }
 
-// grid (ceil(M / kRows), segments, B). With one segment the block writes
-// dk (times scale) and dv; with more, its partial sums go to
+// grid (ceil(M / kRowsBlk), segments, B). With one segment the block
+// writes dk (times scale) and dv; with more, its partial sums go to
 // dk_out / dv_out[(batch * segments + seg) * M ...].
 template <int DIM, int H>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DIM, H>)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ kv_valid,
@@ -538,17 +624,24 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float mul) {
   using S = Shape<DIM, H>;
   constexpr int kTok = S::kTok, kStride = S::kStride, kVec = S::kVec;
-  constexpr int kSteps = S::kSteps, kPart = S::kPart;
-  __shared__ __align__(16) float qs[2][kTile][kStride];
-  __shared__ __align__(16) float dos[2][kTile][kStride];
-  __shared__ __align__(16) float lds[2][kTile][2 * H];
-  __shared__ unsigned words[kMaxSegTiles];
+  constexpr int kSteps = S::kSteps, kPart = S::kPart, kSplit = S::kSplit;
+  extern __shared__ __align__(16) float smem[];
+  float (*qs)[kTile][kStride] =
+      reinterpret_cast<float (*)[kTile][kStride]>(smem);
+  float (*dos)[kTile][kStride] =
+      reinterpret_cast<float (*)[kTile][kStride]>(smem + S::kTileFloats);
+  float (*lds)[kTile][2 * H] = reinterpret_cast<float (*)[kTile][2 * H]>(
+      smem + 2 * S::kTileFloats);
+  float* xch = smem + 2 * S::kTileFloats + 2 * kTile * 2 * H;
+  unsigned* words = reinterpret_cast<unsigned*>(xch + S::kXch);
 
   const int batch = blockIdx.z, seg = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
-  const int j0 = blockIdx.x * kRows;
-  const int r0 = j0 + warp * 16;  // the warp's keys r0 + g, r0 + g + 8
+  const int j0 = blockIdx.x * S::kRowsBlk;
+  // the warp's keys r0 + g, r0 + g + 8, and its dims from channel sl
+  const int r0 = j0 + (warp / kSplit) * 16;
+  const int sl = (warp % kSplit) * S::kDW;
   const unsigned char* mb = kv_valid + (size_t)batch * m;
   const bool v0 = r0 + g < m && mb[r0 + g];
   const bool v8 = r0 + g + 8 < m && mb[r0 + g + 8];
@@ -564,10 +657,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // every key of the block masked: dk = dv = 0 (uniform)
   if (!__syncthreads_or(v0 || v8)) {
-    write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, dka, 0.f, true, true);
-    write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, dva, 0.f, true, true);
+    write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, sl, dka, 0.f, true,
+                       true);
+    write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, sl, dva, 0.f, true,
+                       true);
     return;
   }
+  // the same for every warp of a row group (they share its keys)
   const bool mine = __any_sync(0xffffffffu, v0 || v8);
 
   const float* qb = q + (size_t)batch * n * kTok;
@@ -585,12 +681,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float a[kPart], a8[kPart];
     const float* kb = k + (size_t)batch * m * kTok;
     const float* vb = v + (size_t)batch * m * kTok;
-    token_part<DIM, H>(kb, r0 + g, m, t, a);
-    token_part<DIM, H>(kb, r0 + g + 8, m, t, a8);
+    token_part<DIM, H>(kb, r0 + g, m, t, sl, a);
+    token_part<DIM, H>(kb, r0 + g + 8, m, t, sl, a8);
 #pragma unroll
     for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, kf[h]);
-    token_part<DIM, H>(vb, r0 + g, m, t, a);
-    token_part<DIM, H>(vb, r0 + g + 8, m, t, a8);
+    token_part<DIM, H>(vb, r0 + g, m, t, sl, a);
+    token_part<DIM, H>(vb, r0 + g + 8, m, t, sl, a8);
 #pragma unroll
     for (int h = 0; h < H; ++h) frag_rows<DIM, H>(a, a8, h, vf[h]);
   }
@@ -610,22 +706,23 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       async_copy::copy16(&lds[buf][0][0] + 4 * e,
                          lb + (size_t)q0 * 2 * H + 4 * e, true);
   };
+  int par = 0;
   walk(words, nt, stage, [&](int, int buf) {
-    if (!mine) return;  // uniform across the warp
+    if (!mine) return;  // uniform across the warp and its row group
 #pragma unroll
     for (int c0 = 0; c0 < kTile; c0 += 8) {
       // s^T and (dout . v)^T: B fragments from query row c0 + g
       float qr[kPart], dr[kPart];
-      load(&qs[buf][c0 + g][kPart * t], qr);
-      load(&dos[buf][c0 + g][kPart * t], dr);
+      load(&qs[buf][c0 + g][sl + kPart * t], qr);
+      load(&dos[buf][c0 + g][sl + kPart * t], dr);
       // the updates' B fragments: queries c0 + 2 t and c0 + 2 t + 1,
       // d = kSteps g + n-tile
       float qa[kSteps * H], qb2[kSteps * H], da[kSteps * H],
           db2[kSteps * H];
-      load(&qs[buf][c0 + 2 * t][kSteps * g * H], qa);
-      load(&qs[buf][c0 + 2 * t + 1][kSteps * g * H], qb2);
-      load(&dos[buf][c0 + 2 * t][kSteps * g * H], da);
-      load(&dos[buf][c0 + 2 * t + 1][kSteps * g * H], db2);
+      load(&qs[buf][c0 + 2 * t][sl + kSteps * g * H], qa);
+      load(&qs[buf][c0 + 2 * t + 1][sl + kSteps * g * H], qb2);
+      load(&dos[buf][c0 + 2 * t][sl + kSteps * g * H], da);
+      load(&dos[buf][c0 + 2 * t + 1][sl + kSteps * g * H], db2);
       // (L log2 e, D) per head of queries c0 + 2 t, c0 + 2 t + 1
       float la[2 * H], lc[2 * H];
       load(&lds[buf][c0 + 2 * t][0], la);
@@ -635,6 +732,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float s[4], dp[4];
         product<DIM, H>(s, kf[h], qr, h);
         product<DIM, H>(dp, vf[h], dr, h);
+        group_sum<DIM, H>(xch, par, s, dp);
         // accumulator (key g / g + 8, query 2 t / 2 t + 1); a dead
         // query has L = +inf, so p = 0
         const float p0 = ex2(fmaf(s[0], scale_log2e, -la[2 * h]));
@@ -655,8 +753,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   });
   // a masked key's row may hold anything (rows of a product are
   // independent): it is written as zeros
-  write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, dka, mul, !v0, !v8);
-  write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, dva, 1.f, !v0, !v8);
+  write_rows<DIM, H>(dk_out + orow, r0 + g, m, t, sl, dka, mul, !v0, !v8);
+  write_rows<DIM, H>(dv_out + orow, r0 + g, m, t, sl, dva, 1.f, !v0, !v8);
 }
 
 // out[b, r, :] = mul * sum over s in order of part[b, s, r, :], one
@@ -690,6 +788,25 @@ int merge(const float* part, float* out, int batch, int rows, int tok,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dq (which 0) or dkv (1) kernel of an instance, its dynamic shared
+// memory allowed (once).
+template <int DIM, int H>
+const void* prepared(int which) {
+  static const bool done = [] {
+    cudaFuncSetAttribute(flash_bwd_dq_kernel<DIM, H>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         Shape<DIM, H>::kSmemBytes);
+    cudaFuncSetAttribute(flash_bwd_dkv_kernel<DIM, H>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         Shape<DIM, H>::kSmemBytes);
+    return true;
+  }();
+  (void)done;
+  return which == 0
+             ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<DIM, H>)
+             : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<DIM, H>);
+}
+
 template <int DIM, int H>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* valid, const float* out, const float* dout,
@@ -697,7 +814,8 @@ int launch(const float* q, const float* k, const float* v,
            float* dk, float* dv, float* part_q, float* part_k,
            float* part_v, int batch, int n, int m, int seg_q, int seg_kv,
            float scale, cudaStream_t stream) {
-  constexpr int kTok = Shape<DIM, H>::kTok;
+  using S = Shape<DIM, H>;
+  constexpr int kTok = S::kTok, kRowsBlk = S::kRowsBlk;
   const int npad = (n + kRows - 1) / kRows * kRows;
   const int ktiles = (m + kTile - 1) / kTile, qtiles = npad / kTile;
   if ((ktiles + seg_q - 1) / seg_q > kMaxSegTiles ||
@@ -705,21 +823,22 @@ int launch(const float* q, const float* k, const float* v,
       (seg_q > 1 && part_q == nullptr) ||
       (seg_kv > 1 && (part_k == nullptr || part_v == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  prepared<DIM, H>(0);
   const float sl2e = scale * kLog2e;
   const int total = batch * npad;
   flash_bwd_prep_kernel<DIM, H>
       <<<(total + kFlatThreads - 1) / kFlatThreads, kFlatThreads, 0,
          stream>>>(out, dout, lse, ld, qwords, n, npad, total);
-  dim3 gq((n + kRows - 1) / kRows, seg_q, batch);
-  flash_bwd_dq_kernel<DIM, H><<<gq, kThreads, 0, stream>>>(
+  dim3 gq((n + kRowsBlk - 1) / kRowsBlk, seg_q, batch);
+  flash_bwd_dq_kernel<DIM, H><<<gq, kThreads, S::kSmemBytes, stream>>>(
       q, k, v, valid, dout, ld, qwords, seg_q > 1 ? part_q : dq, n, m, npad,
       seg_q, sl2e, seg_q > 1 ? 1.f : scale);
   if (seg_q > 1) {
     const int e = merge(part_q, dq, batch, n, kTok, seg_q, scale, stream);
     if (e) return e;
   }
-  dim3 gk((m + kRows - 1) / kRows, seg_kv, batch);
-  flash_bwd_dkv_kernel<DIM, H><<<gk, kThreads, 0, stream>>>(
+  dim3 gk((m + kRowsBlk - 1) / kRowsBlk, seg_kv, batch);
+  flash_bwd_dkv_kernel<DIM, H><<<gk, kThreads, S::kSmemBytes, stream>>>(
       q, k, v, valid, dout, ld, qwords, seg_kv > 1 ? part_k : dk,
       seg_kv > 1 ? part_v : dv, n, m, npad, seg_kv, sl2e,
       seg_kv > 1 ? 1.f : scale);
@@ -733,15 +852,12 @@ int launch(const float* q, const float* k, const float* v,
 
 template <int DIM, int H>
 int tiles(int kernel, int* out) {
-  out[0] = kRows;
+  out[0] = Shape<DIM, H>::kRowsBlk;
   out[1] = kTile;
   out[2] = kMaxSegTiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3],
-      kernel == 0
-          ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<DIM, H>)
-          : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<DIM, H>),
-      kThreads, 0));
+      &out[3], prepared<DIM, H>(kernel), kThreads,
+      Shape<DIM, H>::kSmemBytes));
 }
 
 }  // namespace
@@ -763,57 +879,48 @@ extern "C" int flash_cross_attention_bwd_tiles(int dim, int heads,
                                                int kernel, int* out) {
   if (kernel != 0 && kernel != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dim == 32)
-    return heads == 1 ? tiles<32, 1>(kernel, out)
-                      : static_cast<int>(cudaErrorInvalidValue);
-  if (dim != 16) return static_cast<int>(cudaErrorInvalidValue);
-  switch (heads) {
-    case 1: return tiles<16, 1>(kernel, out);
-    case 2: return tiles<16, 2>(kernel, out);
+  if (heads == 2 && dim == 16) return tiles<16, 2>(kernel, out);
+  if (heads != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dim) {
+    case 16: return tiles<16, 1>(kernel, out);
+    case 32: return tiles<32, 1>(kernel, out);
+    case 64: return tiles<64, 1>(kernel, out);
+    case 128: return tiles<128, 1>(kernel, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // q, out, dout (B, n, dim, heads), k, v (B, m, dim, heads) f32 (dim 16
-// with heads 1 or 2; dim 32 with heads 1), kv_valid
-// (B, m) bytes, lse (B, n, heads) f32, contiguous, 16-byte aligned.
-// Scratch: ld (B, npad, heads, 2) f32 and qwords (B, npad / 32) u32 with
-// npad = n rounded up to the rows per block; with seg_q > 1, part_q (B, seg_q, n, dim *
-// heads); with seg_kv > 1, part_k and part_v (B, seg_kv, m, dim * heads)
-// f32.
+// with heads 1 or 2; dim 32, 64 or 128 with heads 1), kv_valid (B, m)
+// bytes, lse (B, n, heads) f32, contiguous, 16-byte aligned. Scratch: ld
+// (B, npad, heads, 2) f32 and qwords (B, npad / 32) u32 with npad = n
+// rounded up to 64; with seg_q > 1, part_q (B, seg_q, n, dim * heads);
+// with seg_kv > 1, part_k and part_v (B, seg_kv, m, dim * heads) f32.
 extern "C" int flash_cross_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* kv_valid,
     const void* out, const void* dout, const void* lse, void* ld,
     void* qwords, void* dq, void* dk, void* dv, void* part_q, void* part_k,
     void* part_v, int batch, int n, int m, int dim, int heads, int seg_q,
     int seg_kv, float scale, void* stream) {
-  if ((dim != 16 && dim != 32) || batch < 1 || n < 1 || m < 1 || seg_q < 1 ||
-      seg_kv < 1)
+  if (batch < 1 || n < 1 || m < 1 || seg_q < 1 || seg_kv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
   const unsigned char* mv = static_cast<const unsigned char*>(kv_valid);
   unsigned* qw = static_cast<unsigned*>(qwords);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 32)
-    return heads == 1
-               ? launch<32, 1>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
-                               w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
-                               w(part_k), w(part_v), batch, n, m, seg_q,
-                               seg_kv, scale, s)
-               : static_cast<int>(cudaErrorInvalidValue);
-  switch (heads) {
-    case 1:
-      return launch<16, 1>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
-                           w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
-                           w(part_k), w(part_v), batch, n, m, seg_q, seg_kv,
-                           scale, s);
-    case 2:
-      return launch<16, 2>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse),
-                           w(ld), qw, w(dq), w(dk), w(dv), w(part_q),
-                           w(part_k), w(part_v), batch, n, m, seg_q, seg_kv,
-                           scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_BWD_LAUNCH(D, H)                                               \
+  launch<D, H>(f(q), f(k), f(v), mv, f(out), f(dout), f(lse), w(ld), qw,     \
+               w(dq), w(dk), w(dv), w(part_q), w(part_k), w(part_v), batch,  \
+               n, m, seg_q, seg_kv, scale, s)
+  if (heads == 2 && dim == 16) return FLASH_BWD_LAUNCH(16, 2);
+  if (heads != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dim) {
+    case 16: return FLASH_BWD_LAUNCH(16, 1);
+    case 32: return FLASH_BWD_LAUNCH(32, 1);
+    case 64: return FLASH_BWD_LAUNCH(64, 1);
+    case 128: return FLASH_BWD_LAUNCH(128, 1);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_BWD_LAUNCH
 }

@@ -1,6 +1,7 @@
 // Fused masked cdist -> top-K (K = 1 is the masked argmin), f32.
-// Instances K = 1, 5, 8, 16; a caller's k <= 16 takes the smallest
-// K >= k and keeps the first k columns (see below).
+// List instances K = 1, 5, 8, 16; a caller's k <= 16 takes the smallest
+// K >= k and keeps the first k columns (see below). A k above 16 takes
+// the wide path (masked_topk_wide_kernel, below). Any feature width C.
 //
 // Replaces the TPU kernels pose6d_tpu/ops/pallas/cdist.py:40
 // masked_argmin_cdist and :99 masked_topk_cdist. For each row a_i of
@@ -62,6 +63,38 @@
 // (a row may be a slice of a wider tensor); the kernel zero-fills the
 // features up to CP = 4, 32 or 64 in registers and shared memory (zero
 // features change no distance), so a call makes no copies.
+//
+// Features wider than 64 (ZoomOut's argmin and top-5 at eval.zoomout_k
+// or Predictor(zoomout_k) above 64; the naive solver at n_fmap > 64) and
+// k above 16 (resolve --topk 24) share one distance walk (tile_d2): one
+// warp per query row, 8 rows a block over shared-memory tiles of 128
+// columns whose features are staged in chunks of 64 (row stride 65, so
+// the 32 lanes' columns sit in distinct banks) beside the 8 rows' chunk;
+// lane l takes columns l, l + 32, l + 64, l + 96 of each tile, so a
+// lane meets its columns in increasing order. Its d2 is the expression
+// above with the same fmaf chains over the features in order, bit for
+// bit the list instances' value. Bound as above (C FMAs a pair, ~2
+// issued instructions each with the shared-memory read); the simple
+// layout costs one shared load per FMA and is not tuned.
+// - masked_topk_chunked_kernel (K = 1, 5, 8 at C > 64): each lane keeps
+//   a sorted list of K (d2, column), then a butterfly over the 32 lanes
+//   as in the list instances; one pass. (A K = 16 list spilled there on
+//   an H100; 8 < k <= 16 takes the wide path at C > 64, whose order and
+//   fill are those of lax.top_k, which the JAX package runs above 8.)
+// - masked_topk_wide_kernel (k > 16, any C): the register lists do not
+//   scale with k, so a row's k-th smallest key (d2 bits, column; d2 >= 0,
+//   so its bits order as the floats do; a masked column is +inf) is found
+//   by radix select on the d2 bits, four passes of 8 bits, each a fresh
+//   walk that histograms the digit of the columns whose higher digits
+//   match (256 bins a warp in shared memory; integer counts, any order).
+//   A fifth walk writes the keys below the k-th d2, and the lowest
+//   columns at that d2 (ballot ranks in column order), to a (B, N, k)
+//   scratch; each lane then ranks its entries among the k by (d2,
+//   column) and writes them to their slots. Recomputing the distances
+//   in every pass needs no (N, M) store, so no M or C is refused. Masked
+//   columns rank after every valid one in column order and come out at
+//   1e9: lax.top_k's order and fill (pose6d_tpu/ops/nn.py:81), which is
+//   what the JAX package runs above k = 8.
 //
 // C interface (ctypes): returns cudaGetLastError() after the launches.
 
@@ -319,6 +352,281 @@ merge_splits_kernel(const float* __restrict__ part_d2,
   store<K>(out_d2 + (size_t)r * K, out_idx + (size_t)r * K, bd, bi, true);
 }
 
+// The shared distance walk of the chunked and wide kernels: one warp per
+// query row, kWalkRows rows a block.
+constexpr int kWalkRows = kWarps;
+constexpr int kWalkTile = 128;              // columns staged per tile
+constexpr int kWalkCols = kWalkTile / 32;   // columns of a lane per tile
+constexpr int kWalkChunk = 64;              // features staged per chunk
+constexpr int kWalkStride = kWalkChunk + 1; // odd: lanes' columns in distinct banks
+constexpr int kBins = 256;                  // radix digits of 8 bits
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf: a masked column
+
+struct WalkSmem {
+  float bs[kWalkTile][kWalkStride];
+  float as[kWalkRows][kWalkChunk];
+  float b2s[kWalkTile];
+};
+
+// One tile of the walk over the M columns for the block's rows row0 ..
+// row0 + 7 (warp w takes row0 + w): d[u] is the masked d2 of the lane's
+// column t0 + 32 u + lane (+inf for a masked column or one past M), so a
+// lane meets its columns in increasing order over the tiles. a2 is the
+// warp's row's |a|^2. Whole block: every thread calls it for every tile.
+__device__ __forceinline__ void tile_d2(
+    WalkSmem& sm, const float* __restrict__ ab, const float* __restrict__ bb,
+    const unsigned char* __restrict__ vb, int row0, int n, int m, int c,
+    long long a_sn, long long b_sn, float a2, int t0,
+    float (&d)[kWalkCols]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[kWalkCols];
+#pragma unroll
+  for (int u = 0; u < kWalkCols; ++u) acc[u] = 0.f;
+  for (int f0 = 0; f0 < c; f0 += kWalkChunk) {
+    const int fc = min(kWalkChunk, c - f0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int t = threadIdx.x; t < kWalkTile * fc; t += kThreads) {
+      const int jj = t / fc, f = t % fc, j = t0 + jj;
+      sm.bs[jj][f] = j < m ? bb[j * b_sn + f0 + f] : 0.f;
+    }
+    for (int t = threadIdx.x; t < kWalkRows * fc; t += kThreads) {
+      const int r = t / fc, f = t % fc, row = row0 + r;
+      sm.as[r][f] = row < n ? ab[row * a_sn + f0 + f] : 0.f;
+    }
+    __syncthreads();
+    // |b|^2 of the tile's columns, one fmaf chain over the features in
+    // order across the chunks (thread t keeps column t's)
+    if (threadIdx.x < kWalkTile) {
+      float s2 = f0 == 0 ? 0.f : sm.b2s[threadIdx.x];
+      for (int f = 0; f < fc; ++f)
+        s2 = fmaf(sm.bs[threadIdx.x][f], sm.bs[threadIdx.x][f], s2);
+      sm.b2s[threadIdx.x] = s2;
+    }
+#pragma unroll 4
+    for (int f = 0; f < fc; ++f) {
+      const float af = sm.as[warp][f];
+#pragma unroll
+      for (int u = 0; u < kWalkCols; ++u)
+        acc[u] = fmaf(af, sm.bs[u * 32 + lane][f], acc[u]);
+    }
+  }
+  __syncthreads();  // b2s complete
+#pragma unroll
+  for (int u = 0; u < kWalkCols; ++u) {
+    const int j = t0 + u * 32 + lane;
+    d[u] = j < m && vb[j]
+        ? fmaxf(fmaf(-2.f, acc[u], a2) + sm.b2s[u * 32 + lane], 0.f)
+        : INFINITY;
+  }
+}
+
+// |a|^2 of row `row` (0 past N), one fmaf chain over the features.
+__device__ __forceinline__ float row_norm2(const float* __restrict__ ab,
+                                           int row, int n, int c,
+                                           long long a_sn) {
+  float a2 = 0.f;
+  if (row < n) {
+    for (int f = 0; f < c; ++f) {
+      const float x = ab[row * a_sn + f];
+      a2 = fmaf(x, x, a2);
+    }
+  }
+  return a2;
+}
+
+// K <= 8 at any C (used for C > 64): grid (ceil(N / 8), 1, B); each lane
+// keeps a sorted list over its columns, then a butterfly merges the
+// warp's 32 lists by (d2, column).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+masked_topk_chunked_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           const unsigned char* __restrict__ b_valid,
+                           float* __restrict__ out_d2,
+                           int* __restrict__ out_idx, int n, int m, int c,
+                           long long a_sb, long long a_sn, long long b_sb,
+                           long long b_sn, long long v_sb) {
+  __shared__ __align__(16) WalkSmem sm;
+  const int batch = blockIdx.z, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * kWalkRows, row = row0 + threadIdx.x / 32;
+  const float* ab = a + batch * a_sb;
+  const float a2 = row_norm2(ab, row, n, c, a_sn);
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = INFINITY;
+    bi[s] = 0;
+  }
+  const float* bb = b + batch * b_sb;
+  const unsigned char* vb = b_valid + batch * v_sb;
+  for (int t0 = 0; t0 < m; t0 += kWalkTile) {
+    float d[kWalkCols];
+    tile_d2(sm, ab, bb, vb, row0, n, m, c, a_sn, b_sn, a2, t0, d);
+#pragma unroll
+    for (int u = 0; u < kWalkCols; ++u) {
+      if (d[u] < bd[K - 1])
+        insert<K, false>(bd, bi, d[u], t0 + u * 32 + lane);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    float od[K];
+    int oi[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      od[s] = __shfl_xor_sync(0xffffffffu, bd[s], off);
+      oi[s] = __shfl_xor_sync(0xffffffffu, bi[s], off);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) insert<K, true>(bd, bi, od[s], oi[s]);
+  }
+  if (lane != 0 || row >= n) return;
+  const size_t o = ((size_t)batch * n + row) * K;
+  store<K>(out_d2 + o, out_idx + o, bd, bi, true);
+}
+
+// Any k <= M (used for k > 16) at any C: grid (ceil(N / 8), 1, B), one
+// warp per row. Radix select of the row's k-th smallest d2 over four
+// walks, a fifth that writes the k winners unsorted to the scratch
+// (sc_bits: d2 bits, sc_idx: columns; (B, N, k) each), then a rank sort
+// into the output.
+__global__ void __launch_bounds__(kThreads)
+masked_topk_wide_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const unsigned char* __restrict__ b_valid,
+                        float* __restrict__ out_d2, int* __restrict__ out_idx,
+                        unsigned* __restrict__ sc_bits,
+                        int* __restrict__ sc_idx, int n, int m, int c, int k,
+                        long long a_sb, long long a_sn, long long b_sb,
+                        long long b_sn, long long v_sb) {
+  __shared__ __align__(16) WalkSmem sm;
+  __shared__ unsigned hist[kWalkRows][kBins];
+  const int batch = blockIdx.z, warp = threadIdx.x / 32,
+            lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * kWalkRows, row = row0 + warp;
+  const float* ab = a + batch * a_sb;
+  const float* bb = b + batch * b_sb;
+  const unsigned char* vb = b_valid + batch * v_sb;
+  const float a2 = row_norm2(ab, row, n, c, a_sn);
+  // d2 >= 0 (the clamp; & clears the sign of a -0), so the bits order as
+  // the values do; +inf (masked) after every finite d2
+  auto bits_of = [](float d) { return __float_as_uint(d) & 0x7fffffffu; };
+
+  // the k-th smallest d2 bits: `prefix` on the digits fixed so far,
+  // `need` its rank among the columns that match them (1-based)
+  unsigned prefix = 0u, fixed = 0u;
+  int need = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = lane; i < kBins; i += 32) hist[warp][i] = 0u;
+    __syncwarp();
+    for (int t0 = 0; t0 < m; t0 += kWalkTile) {
+      float d[kWalkCols];
+      tile_d2(sm, ab, bb, vb, row0, n, m, c, a_sn, b_sn, a2, t0, d);
+#pragma unroll
+      for (int u = 0; u < kWalkCols; ++u) {
+        const unsigned x = bits_of(d[u]);
+        if (t0 + u * 32 + lane < m && (x & fixed) == prefix)
+          atomicAdd(&hist[warp][(x >> shift) & (kBins - 1)], 1u);
+      }
+    }
+    __syncwarp();
+    // lane l holds bins 8 l .. 8 l + 7; an inclusive scan of their sums
+    unsigned cnt[kBins / 32], sum = 0u;
+#pragma unroll
+    for (int i = 0; i < kBins / 32; ++i) {
+      cnt[i] = hist[warp][(kBins / 32) * lane + i];
+      sum += cnt[i];
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const unsigned excl = incl - sum, want = static_cast<unsigned>(need);
+    const unsigned owner = __ballot_sync(0xffffffffu,
+                                         excl < want && want <= incl);
+    const int src = __ffs(owner) - 1;  // one lane: k <= M columns counted
+    int bin = 0;
+    unsigned below = 0u;
+    if (lane == src) {
+      unsigned c0 = excl;
+#pragma unroll
+      for (int i = 0; i < kBins / 32; ++i) {
+        if (c0 < want && want <= c0 + cnt[i]) {  // one i
+          bin = (kBins / 32) * lane + i;
+          below = c0;
+        }
+        c0 += cnt[i];
+      }
+    }
+    bin = __shfl_sync(0xffffffffu, bin, src);
+    below = __shfl_sync(0xffffffffu, below, src);
+    need -= static_cast<int>(below);
+    prefix |= static_cast<unsigned>(bin) << shift;
+    fixed |= static_cast<unsigned>(kBins - 1) << shift;
+  }
+
+  // the winners: every column below the k-th d2 (slots 0 .. k - need - 1)
+  // and the `need` lowest columns at it (slots k - need ..), each set in
+  // column order by ballot ranks
+  const size_t r0 = ((size_t)batch * n + min(row, n - 1)) * k;
+  const bool live = row < n;
+  const unsigned lower = (1u << lane) - 1u;
+  int n_lt = 0, n_eq = 0;
+  for (int t0 = 0; t0 < m; t0 += kWalkTile) {
+    float d[kWalkCols];
+    tile_d2(sm, ab, bb, vb, row0, n, m, c, a_sn, b_sn, a2, t0, d);
+#pragma unroll
+    for (int u = 0; u < kWalkCols; ++u) {
+      const int j = t0 + u * 32 + lane;
+      const unsigned x = bits_of(d[u]);
+      const bool lt = j < m && x < prefix, eq = j < m && x == prefix;
+      const unsigned bl = __ballot_sync(0xffffffffu, lt);
+      const unsigned be = __ballot_sync(0xffffffffu, eq);
+      if (live && lt) {
+        const int s = n_lt + __popc(bl & lower);
+        sc_bits[r0 + s] = x;
+        sc_idx[r0 + s] = j;
+      }
+      if (live && eq) {
+        const int e = n_eq + __popc(be & lower);
+        if (e < need) {
+          sc_bits[r0 + k - need + e] = x;
+          sc_idx[r0 + k - need + e] = j;
+        }
+      }
+      n_lt += __popc(bl);
+      n_eq += __popc(be);
+    }
+  }
+  __syncwarp();
+  if (!live) return;
+  // rank sort: an entry's slot is the number of entries before it in
+  // (d2, column) order (the keys are distinct)
+  for (int e = lane; e < k; e += 32) {
+    const unsigned x = sc_bits[r0 + e];
+    const int j = sc_idx[r0 + e];
+    int slot = 0;
+    for (int f = 0; f < k; ++f) {
+      const unsigned y = sc_bits[r0 + f];
+      slot += y < x || (y == x && sc_idx[r0 + f] < j);
+    }
+    out_d2[r0 + slot] = x == kInfBits ? kBig : __uint_as_float(x);
+    out_idx[r0 + slot] = j;
+  }
+}
+
+// the longest list of the list instances, and of the chunked ones (C >
+// 64); above them the wide kernel
+constexpr int kMaxListK = 16, kMaxChunkedK = 8;
+
+// Whether a call takes the wide kernel.
+bool wide_path(int c, int k) {
+  return k > kMaxListK || (c > kWalkChunk && k > kMaxChunkedK);
+}
+
 int padded_width(int c) {
   return c <= BaseTiling<4>::kUsed ? 4 : (c <= BaseTiling<32>::kUsed ? 32 : 64);
 }
@@ -344,8 +652,12 @@ int plan_splits_k(int batch, int n, int m, int c, int sms) {
   }
 }
 
-// The instances: K in {1, 5, 8, 16}; 0 for any other k.
+// The column segments of a launch: the list instances K in {1, 5, 8, 16}
+// at C <= 64 plan them; the walk kernels (C > 64, or k > 16) take 1; 0
+// for a list k that is no instance.
 int plan_splits(int batch, int n, int m, int c, int k, int sms) {
+  if (wide_path(c, k)) return 1;
+  if (c > kWalkChunk) return (k == 1 || k == 5 || k == 8) ? 1 : 0;
   switch (k) {
     case 1: return plan_splits_k<1>(batch, n, m, c, sms);
     case 5: return plan_splits_k<5>(batch, n, m, c, sms);
@@ -381,6 +693,14 @@ void launch_k(const float* a, const float* b, const unsigned char* v,
               float* d2, int* idx, float* part_d2, int* part_idx, int batch,
               int n, int m, int c, int splits, const long long* st,
               cudaStream_t stream) {
+  if constexpr (K <= kMaxChunkedK) {
+    if (c > kWalkChunk) {
+      dim3 grid((n + kWalkRows - 1) / kWalkRows, 1, batch);
+      masked_topk_chunked_kernel<K><<<grid, kThreads, 0, stream>>>(
+          a, b, v, d2, idx, n, m, c, st[0], st[1], st[2], st[3], st[4]);
+      return;
+    }
+  }
   switch (padded_width(c)) {
     case 4:
       launch<K, 4>(a, b, v, d2, idx, part_d2, part_idx, batch, n, m, c,
@@ -399,9 +719,9 @@ void launch_k(const float* a, const float* b, const unsigned char* v,
 }  // namespace
 
 // The number of column segments (grid.y) the launch below takes for this
-// shape on a card with `sms` SMs (0 for a k that is not an instance);
-// with more than one, the caller passes partial-list buffers of (batch,
-// splits, n, k).
+// shape on a card with `sms` SMs (0 for a k <= 16 that is not an
+// instance); with more than one, the caller passes partial-list buffers
+// of (batch, splits, n, k).
 extern "C" int masked_topk_cdist_splits(int batch, int n, int m, int c,
                                         int k, int sms) {
   return plan_splits(batch, n, m, c, k, sms);
@@ -409,7 +729,9 @@ extern "C" int masked_topk_cdist_splits(int batch, int n, int m, int c,
 
 // a (B, N, C) and b (B, M, C) f32 with unit feature stride and the given
 // batch / row strides in elements; b_valid (B, M) bytes with batch
-// stride v_sb. C <= 64, k in {1, 5, 8, 16}.
+// stride v_sb. Any C >= 1; k in {1, 5, 8, 16} (1, 5, 8 at C > 64), or
+// the wide kernel's k <= M (any k > 16, and 8 < k <= 16 at C > 64), for
+// which part_d2 / part_idx are its (B, N, k) scratch.
 extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
                                      const void* b_valid, void* out_d2,
                                      void* out_idx, void* part_d2,
@@ -418,7 +740,9 @@ extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
                                      long long a_sn, long long b_sb,
                                      long long b_sn, long long v_sb,
                                      void* stream) {
-  if (c < 1 || c > 64 || splits < 1 || (splits > 1 && !(part_d2 && part_idx)))
+  if (c < 1 || splits < 1 || batch < 1 || n < 1 || m < 1 ||
+      (splits > 1 && !(part_d2 && part_idx)) ||
+      (splits > 1 && (c > kWalkChunk || k > kMaxListK)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
@@ -429,6 +753,15 @@ extern "C" int masked_topk_cdist_f32(const void* a, const void* b,
   int* pi = static_cast<int*>(part_idx);
   const long long st[5] = {a_sb, a_sn, b_sb, b_sn, v_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide_path(c, k)) {
+    if (k > m || !(part_d2 && part_idx))
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid((n + kWalkRows - 1) / kWalkRows, 1, batch);
+    masked_topk_wide_kernel<<<grid, kThreads, 0, s>>>(
+        af, bf, vf, d2, idx, reinterpret_cast<unsigned*>(pd), pi, n, m, c, k,
+        a_sb, a_sn, b_sb, b_sn, v_sb);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (k) {
     case 1:
       launch_k<1>(af, bf, vf, d2, idx, pd, pi, batch, n, m, c, splits, st, s);

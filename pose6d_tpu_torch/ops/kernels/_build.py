@@ -52,7 +52,7 @@ SOURCES = {
     "flash_cross_attention.cu": {
         "flash_cross_attention_tiles": [_I, _I, _P],
         "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                      _I, _I, _I, _I, _F, _P]},
+                                      _I, _I, _I, _I, _F, _I, _P]},
     "flash_cross_attention_bwd.cu": {
         "flash_cross_attention_bwd_tiles": [_I, _I, _I, _P],
         "flash_cross_attention_bwd_mma_rate": [_I, _I, _P, _P],
@@ -64,8 +64,11 @@ LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
             "consistency_sum_rank_major": 0, "masked_consistency_sum": 0,
             "masked_topk_cdist": 0, "masked_argmin_cdist": 0}
 
-# the flash kernels' launches split by the caller's (head dim, heads):
-# {(kernel, dim, heads): launches}, counted beside LAUNCHES
+# launches split by kernel instance, counted beside LAUNCHES: {(kernel,
+# *instance): launches}; the flash kernels' instance is the caller's
+# (head dim, heads), the cdist kernels' (K, route) with route "tiled"
+# (C <= 64), "chunked" (C > 64) or "wide" (k > 16), the rank-major
+# kernel's (k,)
 LAUNCHES_BY_INSTANCE: dict[tuple, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -75,6 +78,11 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LAUNCHES_BY_INSTANCE.clear()
+
+
+def instance_label(key: tuple) -> str:
+    """'kernel a x b' for a LAUNCHES_BY_INSTANCE key (kernel, a, b)."""
+    return f"{key[0]} " + "x".join(str(x) for x in key[1:])
 
 
 def count_launch(name: str, instance: tuple | None = None) -> None:

@@ -15,17 +15,23 @@ PyTorch versions on CPU tensors: the XLA branch of
 pose6d_tpu/models/attention.py:108-117, kept in f32 (the port rounds
 nothing to bf16), and autograd through it.
 
-Head dims: 16 (every configuration's attention_type="normal" refiner,
-gnn_dim / heads) and 32 (attention_type="double", (gnn_dim +
-overlap_feat_dim) / heads at both widths), each with 1, 2 or 4 heads.
-The kernels' instances hold at most 32 floats a token (16 x 1, 16 x 2,
-32 x 1): for dim x heads > 32 the wrappers lay each head out as a frame
-of its own, (B, N, dim, H) -> (B H, N, dim, 1), and back (a copy of each
-input and output), so a thread keeps as many q and accumulator floats
-as at the default 16 x 2.
+Head dims 1 to 128 and any head count. The kernels' instances are
+dims 16, 32, 64 and 128 (16 with 1 or 2 heads, the others with one): a
+call's head dim is zero-padded to the smallest instance dim at or above
+it (zero channels change neither q . k nor the kept channels of the
+output, which are sliced back; the scale stays the caller's), as the
+JAX kernel pads every dim to 128. Every configuration of config/ runs
+16 (attention_type="normal", gnn_dim / heads) or 32 ("double", (gnn_dim
++ overlap_feat_dim) / heads) unpadded. For dim x heads > 32 (after the
+pad) the wrappers lay each head out as a frame of its own, (B, N, dim,
+H) -> (B H, N, dim, 1), and back (a copy of each input and output), so
+a thread keeps as many q and accumulator floats as at the default
+16 x 2. Head dims above 128 raise: the JAX kernel cannot take them
+either (its pad to 128 goes negative).
 """
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -34,29 +40,55 @@ from ..masking import masked_softmax
 from . import _build
 
 # csrc/flash_cross_attention.cu's tiling (the wrapper checks it against
-# the built kernel): head dims and head counts the wrappers take, floats
-# a token of a kernel instance holds at most (wider tokens are folded
-# into one-head frames), keys per staged tile, most key tiles one segment
-# walks; a block covers every head of flash_queries_per_block(H, dim)
-# queries
-FLASH_DIMS = (16, 32)
-FLASH_HEADS = (1, 2, 4)
+# the built kernel): the instances' head dims (a call's dim is padded to
+# the smallest at or above it), floats a token of a kernel instance
+# holds at most unless folded (wider tokens are folded into one-head
+# frames), keys per staged tile, most key tiles one segment walks; a
+# block covers every head of flash_queries_per_block(H, dim) queries
+FLASH_DIMS = (16, 32, 64, 128)
 FLASH_MAX_TOKEN = 32
 FLASH_KEY_TILE, FLASH_MAX_SEGMENT_TILES = 32, 256
 
 
+def instance_dim(dim: int) -> int:
+    """The kernels' head dim that serves a call at head dim `dim`: the
+    smallest of FLASH_DIMS at or above it (the call zero-padded up to
+    it). Raises above 128."""
+    for d in FLASH_DIMS:
+        if dim <= d:
+            return d
+    raise ValueError(f"the flash kernels take head dims up to "
+                     f"{FLASH_DIMS[-1]}, as the JAX kernel does (its pad to "
+                     f"128 goes negative above), got {dim} (ROADMAP.md, "
+                     "section 2, row 1)")
+
+
+def prescaled(sm_scale: float) -> bool:
+    """Whether the forward kernel multiplies q by the scale once, at
+    load: only for a power-of-two scale (frexp's mantissa 0.5, read on
+    the f32 value the kernel gets), where that is exact and every score
+    is (q . k) * scale bit for bit. Keyed on the caller's scale (1/sqrt
+    of the caller's dim), never on the instance's dim: a dim-8 call
+    padded to the dim-16 instance keeps 1/sqrt(8), which is not."""
+    return math.frexp(float(torch.tensor(sm_scale,
+                                         dtype=torch.float32)))[0] == 0.5
+
+
 def kernel_instance(bsz: int, dim: int, heads: int) -> tuple:
     """(frames, heads) of the kernel launch that serves a (bsz, ., dim,
-    heads) call: the heads folded into frames when dim x heads exceeds
-    FLASH_MAX_TOKEN."""
-    if dim * heads > FLASH_MAX_TOKEN:
+    heads) call: the heads folded into frames when instance_dim(dim) x
+    heads exceeds FLASH_MAX_TOKEN."""
+    if instance_dim(dim) * heads > FLASH_MAX_TOKEN:
         return bsz * heads, 1
     return bsz, heads
 
 
 def flash_queries_per_block(heads: int, dim: int = 16) -> int:
-    """128 threads, each with 64 // dim (query, head) rows."""
-    return 128 * (64 // (dim * heads))
+    """128 threads, each with max(1, 64 // (dim x heads)) queries of
+    every head; above 64 floats a token, dim x heads // 64 threads share
+    a query."""
+    tok = dim * heads
+    return 128 * max(1, 64 // tok) // max(1, tok // 64)
 
 
 def flash_segments(bsz: int, n: int, m: int, heads: int, sms: int,
@@ -74,9 +106,10 @@ def flash_segments(bsz: int, n: int, m: int, heads: int, sms: int,
 
 def flash_segments_on(device, bsz: int, n: int, m: int, heads: int,
                       dim: int = 16) -> int:
-    """flash_segments for the built kernel instance (dim, heads) on the
-    card `device` (its tiling and blocks per SM asked from the library
-    once)."""
+    """flash_segments for the built kernel instance (instance_dim(dim),
+    heads) on the card `device` (its tiling and blocks per SM asked from
+    the library once)."""
+    dim = instance_dim(dim)
     per_sm = _build.kernel_tiles(
         _build.library("flash_cross_attention.cu").flash_cross_attention_tiles,
         (flash_queries_per_block(heads, dim), FLASH_KEY_TILE,
@@ -86,44 +119,56 @@ def flash_segments_on(device, bsz: int, n: int, m: int, heads: int,
 
 
 # csrc/flash_cross_attention_bwd.cu's tiling (checked against the built
-# kernels): rows per block (queries of the dq kernel, keys of the dkv
-# kernel) and walked rows per tile (keys, queries); the most tiles one
-# segment walks is FLASH_MAX_SEGMENT_TILES, as in the forward
+# kernels): the queries' padding unit (64 rows) and walked rows per
+# tile (keys, queries); rows per block (queries of
+# the dq kernel, keys of the dkv kernel) are flash_backward_rows; the
+# most tiles one segment walks is FLASH_MAX_SEGMENT_TILES, as in the
+# forward
 FLASH_BWD_ROWS, FLASH_BWD_TILE = 64, 32
 
 
+def flash_backward_rows(dim: int = 16, heads: int = 2) -> int:
+    """Rows a backward block owns at the kernel instance (dim, heads):
+    4 warps of 16 rows, each row group shared by dim x heads // 32 warps
+    above 32 floats a token."""
+    return FLASH_BWD_ROWS // max(1, dim * heads // 32)
+
+
 def flash_backward_segments(bsz: int, n: int, m: int, sms: int,
-                            per_sm_dq: int, per_sm_dkv: int) -> tuple:
+                            per_sm_dq: int, per_sm_dkv: int,
+                            rows: int = FLASH_BWD_ROWS) -> tuple:
     """(Gq, Gkv): the number of segments the backward's dq kernel splits
     its key walk into and the dkv kernel its query walk
-    (_build.plan_segments over each kernel's blocks x B and walked
-    tiles, each with the blocks per SM its build reports): at least two
-    blocks on each of `sms` SMs, no segment walking more than
+    (_build.plan_segments over each kernel's blocks of `rows` rows x B
+    and walked tiles, each with the blocks per SM its build reports): at
+    least two blocks on each of `sms` SMs, no segment walking more than
     FLASH_MAX_SEGMENT_TILES tiles. Segment g takes the tiles
     _build.segment_tiles(tiles, G, g)."""
-    def plan(rows, walked, per_sm):
+    def plan(owned, walked, per_sm):
         tiles = -(-walked // FLASH_BWD_TILE)
         return _build.plan_segments(
-            -(-rows // FLASH_BWD_ROWS) * bsz, tiles, sms, per_sm,
+            -(-owned // rows) * bsz, tiles, sms, per_sm,
             least=-(-tiles // FLASH_MAX_SEGMENT_TILES))
-    # the dkv kernel walks the queries padded to whole dq blocks
+    # the dkv kernel walks the queries padded to whole 64-row words
     n_pad = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS
     return plan(n, m, per_sm_dq), plan(m, n_pad, per_sm_dkv)
 
 
 def flash_backward_segments_on(device, bsz: int, n: int, m: int,
                                heads: int, dim: int = 16) -> tuple:
-    """flash_backward_segments for the built kernel instances (dim,
-    heads) on the card `device` (their tiling and blocks per SM asked
-    once)."""
+    """flash_backward_segments for the built kernel instances
+    (instance_dim(dim), heads) on the card `device` (their tiling and
+    blocks per SM asked once)."""
+    dim = instance_dim(dim)
+    rows = flash_backward_rows(dim, heads)
     lib = _build.library("flash_cross_attention_bwd.cu")
     per_sm = [_build.kernel_tiles(
         lib.flash_cross_attention_bwd_tiles,
-        (FLASH_BWD_ROWS, FLASH_BWD_TILE, FLASH_MAX_SEGMENT_TILES),
+        (rows, FLASH_BWD_TILE, FLASH_MAX_SEGMENT_TILES),
         f"flash_cross_attention_backward[{which}]", dim, heads, which)
         for which in (0, 1)]
     return flash_backward_segments(bsz, n, m, _build.sm_count(device),
-                                   *per_sm)
+                                   *per_sm, rows)
 
 
 def flash_cross_attention_plain(q, k, v, kv_valid, sm_scale: float):
@@ -174,10 +219,7 @@ def _checked(q, k, v, kv_valid):
             or kv_valid.shape != (bsz, m):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} kv_valid{tuple(kv_valid.shape)}")
-    if dim not in FLASH_DIMS:
-        raise ValueError(f"the flash kernels take head dims {FLASH_DIMS}, "
-                         f"got {dim} (ROADMAP.md, section 2, TPU kernels, "
-                         "lists the head dims they take)")
+    instance_dim(dim)             # raises above 128
     if n == 0 or m == 0:
         raise ValueError(f"empty attention: {n} queries, {m} keys")
     if any(t.dtype != torch.float32 for t in (q, k, v)) \
@@ -188,6 +230,15 @@ def _checked(q, k, v, kv_valid):
     # the kernels read whole tokens as 16-byte vectors
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
                  for t in (x.contiguous() for x in (q, k, v, kv_valid)))
+
+
+def _pad_dim(x, dim: int):
+    """(B, N, d, H) -> (B, N, dim, H): zero channels after each head's d
+    (a copy; x itself when d == dim)."""
+    d = x.shape[2]
+    if d == dim:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, dim - d))
 
 
 def _fold_heads(x):
@@ -221,19 +272,35 @@ def _forward_kernel(q, k, v, kv_valid, sm_scale: float, with_lse: bool,
     """Launch the forward on contiguous, checked CUDA inputs; returns
     (out, lse (B, N, H) or None). `segments` overrides the planned key
     split (a check of the unsplit path). `instance` is the caller's
-    (dim, heads) when the heads were folded into frames."""
+    (dim, heads) when the channels were padded or the heads folded into
+    frames."""
     bsz, n, dim, heads = q.shape
     m = k.shape[1]
-    if heads not in FLASH_HEADS:
-        raise ValueError(f"forward kernel takes {FLASH_HEADS} heads, got "
-                         f"{heads}")
-    if dim * heads > FLASH_MAX_TOKEN:
+    instance = instance or (dim, heads)
+    pad = instance_dim(dim)
+    if pad != dim:
+        out, lse = _forward_kernel(
+            *(_pad_dim(t, pad) for t in (q, k, v)), kv_valid, sm_scale,
+            with_lse, segments, instance=instance)
+        return out[:, :, :dim].contiguous(), lse
+    if heads > 1 and dim * heads > FLASH_MAX_TOKEN:
         out, lse = _forward_kernel(
             *(_fold_heads(t) for t in (q, k, v)),
             kv_valid.repeat_interleave(heads, 0), sm_scale, with_lse,
-            segments, instance=(dim, heads))
+            segments, instance=instance)
         return (_unfold_heads(out, heads),
                 None if lse is None else _unfold_lse(lse, heads))
+    return _forward_launch(q, k, v, kv_valid, sm_scale, with_lse, segments,
+                           instance)
+
+
+def _forward_launch(q, k, v, kv_valid, sm_scale: float, with_lse: bool,
+                    segments: int | None, instance: tuple):
+    """The forward kernel's launch at one of its instances (dim in
+    FLASH_DIMS, one head or 16 x 2); _forward_kernel lays a call out
+    for it."""
+    bsz, n, dim, heads = q.shape
+    m = k.shape[1]
     lib = _build.library("flash_cross_attention.cu")
     if segments is None:
         segments = flash_segments_on(q.device, bsz, n, m, heads, dim)
@@ -253,9 +320,10 @@ def _forward_kernel(q, k, v, kv_valid, sm_scale: float, with_lse: bool,
         out.data_ptr(), lse.data_ptr() if with_lse else None,
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), bsz, n, m, dim,
-        heads, segments, float(sm_scale), _build.stream_ptr(q.device))
+        heads, segments, float(sm_scale), int(prescaled(sm_scale)),
+        _build.stream_ptr(q.device))
     _build.check(code, "flash_cross_attention")
-    _build.count_launch("flash_cross_attention", instance or (dim, heads))
+    _build.count_launch("flash_cross_attention", instance)
     return out, lse
 
 
@@ -273,16 +341,31 @@ def _backward_kernel(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
         raise TypeError("out, lse, dout must be float32 on q's device")
     bsz, n, dim, heads = q.shape
     m = k.shape[1]
-    if heads not in FLASH_HEADS:
-        raise ValueError(f"backward kernel takes {FLASH_HEADS} heads, got "
-                         f"{heads}")
-    if dim * heads > FLASH_MAX_TOKEN:
+    instance = instance or (dim, heads)
+    pad = instance_dim(dim)
+    if pad != dim:
+        grads = _backward_kernel(
+            *(_pad_dim(t, pad) for t in (q, k, v)), kv_valid, sm_scale,
+            _pad_dim(out, pad), lse, _pad_dim(dout, pad), segments,
+            instance=instance)
+        return tuple(t[:, :, :dim].contiguous() for t in grads)
+    if heads > 1 and dim * heads > FLASH_MAX_TOKEN:
         grads = _backward_kernel(
             *(_fold_heads(t) for t in (q, k, v)),
             kv_valid.repeat_interleave(heads, 0), sm_scale,
             _fold_heads(out), _fold_lse(lse), _fold_heads(dout), segments,
-            instance=(dim, heads))
+            instance=instance)
         return tuple(_unfold_heads(t, heads) for t in grads)
+    return _backward_launch(q, k, v, kv_valid, sm_scale, out, lse, dout,
+                            segments, instance)
+
+
+def _backward_launch(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
+                     segments: tuple | None, instance: tuple):
+    """The backward kernels' launch at one of their instances;
+    _backward_kernel lays a call out for it."""
+    bsz, n, dim, heads = q.shape
+    m = k.shape[1]
     # out and dout are read as whole tokens (16-byte vectors) too
     out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
                  for t in (out.contiguous(), dout.contiguous()))
@@ -313,8 +396,7 @@ def _backward_kernel(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
         bsz, n, m, dim, heads, seg_q, seg_kv, float(sm_scale),
         _build.stream_ptr(dev))
     _build.check(code, "flash_cross_attention_backward")
-    _build.count_launch("flash_cross_attention_backward",
-                        instance or (dim, heads))
+    _build.count_launch("flash_cross_attention_backward", instance)
     return dq, dk, dv
 
 

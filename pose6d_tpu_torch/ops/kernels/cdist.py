@@ -20,23 +20,27 @@ from ..geometry import pairwise_sqdist
 from ..masking import BIG
 from . import _build
 
-# the top-k lengths the kernel is built for: a call with k takes the
-# smallest instance K >= k and keeps its first k columns (a row's top-k
-# is the k-prefix of its top-K, the plain k-pass's (1e9, 0) fill too)
+# the top-k lengths of the kernel's list instances: a call with k <= 16
+# takes the smallest instance K >= k and keeps its first k columns (a
+# row's top-k is the k-prefix of its top-K, the plain k-pass's (1e9, 0)
+# fill too); a k above 16 takes the kernel's wide path, any k <= M
 TOPK_INSTANCES = (1, 5, 8, 16)
 # the JAX package's topk_valid: the k-pass up to this k, lax.top_k above
 KPASS_MAX_K = 8
-_TOPK_WIDE = ("masked top-k cdist on the card takes k <= "
-              f"{TOPK_INSTANCES[-1]} (ROADMAP.md, section 2, row 3)")
+# features above this run a chunked walk, with list instances up to
+# KPASS_MAX_K and the wide path above
+CHUNKED_C = 64
 
 
-def topk_instance(k: int) -> int:
-    """The kernel instance K that serves a top-k call; raises for a k
-    above the largest."""
+def topk_instance(k: int, c: int = 1) -> int:
+    """The kernel instance K that serves a top-k call at feature width
+    c: a list instance for k <= 16 (k <= 8 above CHUNKED_C features),
+    the wide path (K = k) above."""
+    top = TOPK_INSTANCES[-1] if c <= CHUNKED_C else KPASS_MAX_K
     for inst in TOPK_INSTANCES:
-        if k <= inst:
+        if k <= inst <= top:
             return inst
-    raise ValueError(f"{_TOPK_WIDE}: k={k}")
+    return k
 
 
 def _masked_sqdist(a, b, b_valid):
@@ -71,7 +75,8 @@ def masked_argmin_cdist_plain(a, b, b_valid):
 def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     """Kernel launch: a (B, N, C), b (B, M, C) f32, b_valid (B, M) bool
     on one CUDA device -> (d2 (B, N, k), idx (B, N, k) int32), or
-    (B, N) each for k = 1 with squeeze. The
+    (B, N) each for k = 1 with squeeze, and the launched instance (K,
+    route) for the launch counts. The
     kernel reads a and b through their batch and row strides and pads
     the features itself, so a slice such as evecs[..., :30] is not
     copied; a tensor whose last dimension is strided is."""
@@ -87,9 +92,14 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
         raise ValueError("a, b, b_valid must be on one device")
     bsz, n, c = a.shape
     m = b.shape[1]
-    if c > 64 or k < 1 or n == 0 or m == 0:
-        raise ValueError(f"kernel takes C <= 64 and k >= 1: C={c} k={k}")
-    inst = topk_instance(k)
+    if c < 1 or k < 1 or n == 0 or m == 0:
+        raise ValueError(f"kernel takes C >= 1, k >= 1 and rows: C={c} k={k} "
+                         f"N={n} M={m}")
+    inst = topk_instance(k, c)
+    wide = inst == k > KPASS_MAX_K and (inst > TOPK_INSTANCES[-1]
+                                        or c > CHUNKED_C)
+    if wide and k > m:
+        raise ValueError(f"top-k with k={k} > {m} columns")
     a, b, valid = (x if x.stride(-1) == 1 else x.contiguous()
                    for x in (a, b, b_valid))
     lib = _build.library("masked_cdist.cu")
@@ -101,9 +111,10 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     d2 = torch.empty(shape, dtype=torch.float32, device=a.device)
     idx = torch.empty(shape, dtype=torch.int32, device=a.device)
     # partial lists of the column segments (merged by the kernel's
-    # second pass), only when the columns are split across blocks
+    # second pass), only when the columns are split across blocks; the
+    # wide path's (B, N, k) scratch of unsorted winners
     part_d2 = part_idx = None
-    if splits > 1:
+    if splits > 1 or wide:
         part_d2 = torch.empty((bsz, splits, n, inst), dtype=torch.float32,
                               device=a.device)
         part_idx = torch.empty_like(part_d2, dtype=torch.int32)
@@ -116,15 +127,17 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     _build.check(code, "masked_topk_cdist")
     if inst != k:
         d2, idx = d2[..., :k].contiguous(), idx[..., :k].contiguous()
-    if k > KPASS_MAX_K:
+    if k > KPASS_MAX_K and not wide:
         idx = _top_k_fill(d2, idx, valid)
-    return d2, idx
+    route = "wide" if wide else "chunked" if c > CHUNKED_C else "tiled"
+    return d2, idx, (inst, route)
 
 
 def _top_k_fill(d2, idx, b_valid):
     """lax.top_k's indices where a row's valid columns ran out: the
-    kernel leaves (1e9, 0) there, top_k the masked columns in increasing
-    order (each frame's, the same for all its rows)."""
+    kernel's list instances leave (1e9, 0) there, top_k the masked
+    columns in increasing order (each frame's, the same for all its
+    rows). The wide path writes them so itself."""
     if b_valid.shape[-1] < idx.shape[-1]:
         raise ValueError(f"top-k with k={idx.shape[-1]} > "
                          f"{b_valid.shape[-1]} columns")
@@ -145,9 +158,9 @@ def _topk_op(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
 
 @_topk_op.register_kernel("cuda")
 def _(a, b, b_valid, k):
-    out = _launch(a, b, b_valid, k)
-    _build.LAUNCHES["masked_topk_cdist"] += 1
-    return out
+    d2, idx, instance = _launch(a, b, b_valid, k)
+    _build.count_launch("masked_topk_cdist", instance)
+    return d2, idx
 
 
 @_topk_op.register_fake
@@ -165,9 +178,9 @@ def _argmin_op(a: torch.Tensor, b: torch.Tensor,
 
 @_argmin_op.register_kernel("cuda")
 def _(a, b, b_valid):
-    out = _launch(a, b, b_valid, 1, squeeze=True)
-    _build.LAUNCHES["masked_argmin_cdist"] += 1
-    return out
+    d2, idx, instance = _launch(a, b, b_valid, 1, squeeze=True)
+    _build.count_launch("masked_argmin_cdist", instance)
+    return d2, idx
 
 
 @_argmin_op.register_fake
@@ -179,8 +192,8 @@ def _(a, b, b_valid):
 def masked_topk_cdist(a, b, b_valid, k: int = 5):
     """k smallest masked ||a_i - b_j||^2 per row, ascending, ties to the
     lower index. a (B, N, C), b (B, M, C), b_valid (B, M) bool.
-    Returns (d2 (B, N, k), idx (B, N, k) int32). The card takes
-    k <= 16."""
+    Returns (d2 (B, N, k), idx (B, N, k) int32). Any k (at most M
+    above 8, as lax.top_k) and any C."""
     return _topk_op(a, b, b_valid, k)
 
 

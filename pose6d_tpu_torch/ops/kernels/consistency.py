@@ -17,11 +17,12 @@ from . import _build
 
 # csrc/consistency_rank_major.cu's tiling (the wrapper checks it against
 # the built kernel): PC columns per block, PC rows per staged tile, column
-# ranks per block at most; and the ranks it takes
+# ranks per block at most (any k runs as more chunks of them)
 RM_COL_TILE, RM_ROW_TILE, RM_RANKS_PER_BLOCK = 64, 32, 5
-RM_MAX_K = 16
-_RM_WIDE = ("rank-major consistency sums on the card take k <= "
-            f"{RM_MAX_K} ranks (ROADMAP.md, section 2, row 2)")
+# the plain versions build their (P, P) tables in column blocks of at
+# most this many entries once P^2 exceeds it (P = 49152 at k = 24 and
+# V2 = 2048 would be 9.7 GB a table); below it, one block as before
+PLAIN_TABLE_ENTRIES = 2 ** 30
 
 
 def rank_major_chunks(k: int) -> int:
@@ -75,26 +76,53 @@ def consistency_segments_on(device, bsz: int, p: int) -> int:
     return consistency_segments(bsz, p, _build.sm_count(device), per_sm)
 
 
+def plain_column_blocks(p: int, unit: int) -> list:
+    """The column blocks [j0, j1) that a plain version over a (P, P) table
+    takes: the whole table up to PLAIN_TABLE_ENTRIES entries, else blocks
+    of whole `unit`s holding at most that many."""
+    if p * p <= PLAIN_TABLE_ENTRIES:
+        return [(0, p)]
+    step = max(unit, PLAIN_TABLE_ENTRIES // p // unit * unit)
+    return [(j, min(p, j + step)) for j in range(0, p, step)]
+
+
 def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
     """sum_i w_i * |d_cad(i, j) - dpc(i mod v2, j mod v2)| per pair j,
-    one frame at a time (the (P, P) tables are 420 MB at P = 10240)."""
+    one frame at a time (the (P, P) tables are 420 MB at P = 10240), in
+    column blocks of whole ranks above PLAIN_TABLE_ENTRIES entries. Each
+    block's table is one buffer updated in place: pairwise_sqdist's
+    expansion, (a2 - 2 a.b) + b2 clamped at 0, in its rounding (-2 a.b is
+    exact and x - y is (-y) + x), then the square root and |d - dpc| with
+    the PC table broadcast over the ranks, not tiled."""
     k = coords_cad.shape[1] // v2
     out = []
     for ca, dp, wf in zip(coords_cad, dpc, w):
-        da = torch.sqrt(pairwise_sqdist(ca, ca))
-        out.append(wf @ torch.abs(da - dp.repeat(k, k)))
+        a2 = torch.sum(ca * ca, dim=-1, keepdim=True)
+        cols = []
+        for j0, j1 in plain_column_blocks(k * v2, v2):
+            cb = ca[j0:j1]
+            b2 = torch.sum(cb * cb, dim=-1, keepdim=True)
+            d = (ca @ cb.transpose(-1, -2)).mul_(-2.0).add_(a2).add_(
+                b2.transpose(-1, -2)).clamp_(min=0.0).sqrt_()
+            d.view(k, v2, -1, v2).sub_(dp[None, :, None, :]).abs_()
+            cols.append(wf @ d)
+        out.append(torch.cat(cols))
     return torch.stack(out)
 
 
 def _rank_major_launch(coords_cad, dpc, w, v2: int):
     """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
     bsz, p, c = coords_cad.shape
-    if c != 3 or v2 < 1 or p % v2:
+    if c != 3:
+        raise ValueError(f"the kernel takes 3-D endpoints, got width {c} "
+                         "(ROADMAP.md, section 2, row 2: no caller passes "
+                         "another)")
+    if v2 < 1 or p % v2:
         raise ValueError(f"kernel takes (B, k * v2, 3): "
                          f"{tuple(coords_cad.shape)}, v2={v2}")
     k = p // v2
-    if not 1 <= k <= RM_MAX_K:
-        raise ValueError(f"{_RM_WIDE}: k={k}")
+    if k < 1:
+        raise ValueError(f"kernel takes k >= 1 ranks: P={p}, v2={v2}")
     if dpc.shape != (bsz, v2, v2) or w.shape != (bsz, p):
         raise ValueError(f"bad shapes dpc{tuple(dpc.shape)} w{tuple(w.shape)}")
     if any(t.dtype != torch.float32 for t in (coords_cad, dpc, w)):
@@ -115,7 +143,7 @@ def _rank_major_launch(coords_cad, dpc, w, v2: int):
         rows.data_ptr(), None if part is None else part.data_ptr(), bsz, v2,
         k, segments, _build.stream_ptr(w.device))
     _build.check(code, "consistency_sum_rank_major")
-    _build.LAUNCHES["consistency_sum_rank_major"] += 1
+    _build.count_launch("consistency_sum_rank_major", (k,))
     return out
 
 
@@ -134,7 +162,11 @@ def masked_consistency_sum_plain(ca, cb, w):
 def _pc_major_launch(ca, cb, w):
     """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
     bsz, p, c = ca.shape
-    if c != 3 or cb.shape != ca.shape or w.shape != (bsz, p) or p == 0:
+    if c != 3:
+        raise ValueError(f"the kernel takes 3-D endpoints, got width {c} "
+                         "(ROADMAP.md, section 2, row 5: no caller passes "
+                         "another)")
+    if cb.shape != ca.shape or w.shape != (bsz, p) or p == 0:
         raise ValueError(f"bad shapes ca{tuple(ca.shape)} cb{tuple(cb.shape)} "
                          f"w{tuple(w.shape)}")
     if any(t.dtype != torch.float32 for t in (ca, cb, w)):
@@ -193,7 +225,7 @@ def _(ca, cb, w):
 def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
     """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
     (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
-    Returns (B, P) f32 sums. The card takes k = 1 to 16."""
+    Returns (B, P) f32 sums, at any k."""
     return _rank_major_op(coords_cad, dpc, w, v2)
 
 

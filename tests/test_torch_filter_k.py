@@ -1,11 +1,11 @@
 """The spatial filter at any k and pruning schedule, and the two kernels
 it runs at that k, on the CPU against the JAX package on the same numpy
-inputs: the filter at k = 3 and 8 with a non-default `taus` (both port
-layouts against JAX's PC-major path and its rank-major Pallas path in
-interpret mode), the masked top-k plain version at k = 1, 3, 8, 16
-(rows with fewer valid columns than k included) and the k-prefix rule
-the card's instances rest on, and the rank-major sums at k = 1 to 16
-with their chunk and segment planning."""
+inputs: the filter at k = 3, 8 and 24 with a non-default `taus` (both
+port layouts against JAX's PC-major path and its rank-major Pallas path
+in interpret mode), the masked top-k plain version at k = 1, 3, 8, 16,
+24, 32 (rows with fewer valid columns than k included) and the k-prefix
+rule the card's list instances rest on, and the rank-major sums at k = 1
+to 32 with their chunk and segment planning."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,8 +25,8 @@ from pose6d_tpu_torch.ops.kernels import cdist as cdist_module
 from pose6d_tpu_torch.ops.kernels.cdist import (KPASS_MAX_K, TOPK_INSTANCES,
                                                 topk_instance)
 from pose6d_tpu_torch.ops.kernels.consistency import (
-    RM_COL_TILE, RM_MAX_K, RM_RANKS_PER_BLOCK, RM_ROW_TILE,
-    rank_major_chunks, rank_major_segments)
+    RM_COL_TILE, RM_RANKS_PER_BLOCK, RM_ROW_TILE, rank_major_chunks,
+    rank_major_segments)
 
 from test_torch_filter_pcmajor import _filter_inputs
 
@@ -42,7 +42,7 @@ def _t(x):
 
 @pytest.mark.parametrize("port_layout", ["rank_major", "pc_major"])
 @pytest.mark.parametrize("jax_layout", ["rank_major", "pc_major"])
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 8, 24])
 def test_filter_any_k_and_taus_matches_jax(k, jax_layout, port_layout):
     """Well-separated geometry (tests/test_torch_filter_pcmajor.py): the
     pairs and the survivor mask exactly equal, whichever layout each
@@ -84,12 +84,15 @@ def _cdist_inputs(seed, n, m, c, n_valid):
 
 
 @pytest.mark.parametrize("n_valid", [40, 5])
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 24, 32])
 def test_topk_plain_any_k_matches_jax(k, n_valid):
     """Against the XLA path (the k-pass up to k = 8, lax.top_k above)
     and the Pallas kernel (interpret mode) at the same k, including rows
     with fewer valid columns (5) than k, where the XLA path gives
-    d2 = 1e9 and index 0 (k-pass) or the masked columns (top_k)."""
+    d2 = 1e9 and index 0 (k-pass) or the masked columns (top_k). The
+    Pallas kernel fills such slots with d2 + 1e9 instead, so it is held
+    only on the slots a valid column fills (every slot of a row with at
+    least k valid columns)."""
     a, b, valid = _cdist_inputs(2, 64, 48, 30, n_valid)
     td, ti = masked_topk_cdist(_t(a), _t(b), _t(valid), k=k)
     xd, xi = jax_nn.topk_valid(jnp.asarray(a), jnp.asarray(b),
@@ -158,11 +161,11 @@ def test_topk_is_the_prefix_of_every_longer_topk(n_valid):
         d, i = masked_topk_cdist_plain(*args, k)
         dk, ik = masked_topk_cdist_plain(*args, inst)
         assert torch.equal(d, dk[..., :k]) and torch.equal(i, ik[..., :k])
-    with pytest.raises(ValueError, match="ROADMAP.md, section 2, row 3"):
-        topk_instance(TOPK_INSTANCES[-1] + 1)
+    # above the longest list the kernel's wide path serves k itself
+    assert [topk_instance(k) for k in (17, 24, 32, 64)] == [17, 24, 32, 64]
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 24, 32])
 def test_rank_major_plain_any_k_matches_pallas(k):
     rng = np.random.default_rng(20 + k)
     v2 = 64
@@ -182,8 +185,9 @@ def test_rank_major_plain_any_k_matches_pallas(k):
 
 def test_rank_major_chunks_cover_every_rank():
     """ceil(k / 5) chunks of ceil(k / chunks) ranks (the kernel's
-    chunk_width) hold each of the k ranks once, at most 5 a block."""
-    for k in range(1, RM_MAX_K + 1):
+    chunk_width) hold each of the k ranks once, at most 5 a block, at
+    any k."""
+    for k in range(1, 65):
         chunks = rank_major_chunks(k)
         width = -(-k // chunks)
         assert width <= RM_RANKS_PER_BLOCK
@@ -191,9 +195,10 @@ def test_rank_major_chunks_cover_every_rank():
                  if c * width + r < k]
         assert ranks == list(range(k))
     assert rank_major_chunks(5) == 1 and rank_major_chunks(16) == 4
+    assert rank_major_chunks(24) == 5 and rank_major_chunks(32) == 7
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 24, 32])
 @pytest.mark.parametrize("bsz,v2", [(1, 2048), (16, 2048), (3, 2000)])
 def test_rank_major_segments_at_any_k(bsz, v2, k):
     tiles = -(-v2 // RM_ROW_TILE)

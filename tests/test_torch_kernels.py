@@ -53,7 +53,7 @@ def _cdist_inputs(seed, n, m, c, n_valid):
     return a, b, valid
 
 
-@pytest.mark.parametrize("c", [3, 30])
+@pytest.mark.parametrize("c", [3, 30, 65, 96, 128])
 def test_argmin_plain_matches_pallas(c):
     a, b, valid = _cdist_inputs(0, 256, 192, c, 150)
     jd, ji = jax_argmin(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
@@ -66,7 +66,7 @@ def test_argmin_plain_matches_pallas(c):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("c", [3, 30])
+@pytest.mark.parametrize("c", [3, 30, 65, 96, 128])
 def test_topk_plain_matches_pallas(c):
     a, b, valid = _cdist_inputs(1, 128, 96, c, 70)
     jd, ji = jax_topk(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
