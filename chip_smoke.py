@@ -57,7 +57,11 @@ the card), (c) ZoomOut to 96 features (a well-conditioned refit card
 against CPU, and Predictor(zoomout_k=96) on a 128-eigenvector model);
 kernel_check holds each of those instances against its plain version
 (flash at those head shapes, top-k at k = 24, 32, 64, cdist at C = 96
-and 128, rank-major at k = 24 and 32).
+and 128, rank-major at k = 24 and 32), the wide top-k also on its second
+route (M = 8192 columns, beyond the rows' shared memory), the flash
+forward at head dims 64 and 128 (the tensor-core kernel) also against the
+float64 attention, and prints each cdist shape's kernel route and each
+redesigned shape's time over its bound and over the library call.
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
 last is the card's name and power limit (nvidia-smi); the last line is
@@ -373,19 +377,30 @@ FLASH_INSTANCES = ((32, 2), (32, 4), (16, 4), (8, 8), (16, 3), (64, 2),
                    (128, 2))
 
 
+# the instances on the tensor cores (3xTF32 mma.sync): also held to the
+# float64 attention, within FLASH_TC_TOL of max |v| (the output is a convex
+# combination of v's rows), the plain f32 version's own error printed beside
+FLASH_TC_DIMS = (64, 128)
+FLASH_TC_TOL = 1e-5
+
+
 def flash_instances(dev, g) -> dict:
     """The forward's instances of FLASH_INSTANCES at B = 1 and B = 16 on
     FLASH_CALLS, each held to the plain version as flash_case holds the
     default one, timed as check_flash_forward times it (both calls of a
-    forward summed). Returns {"dim x heads": {"b1": ..., "b16": ...}}."""
+    forward summed), with the f32 bound (bound_ms) and the 3xTF32 one
+    (bound_tc_ms: 3 x the two products' flops at the TF32 tensor-core
+    rate) and the ratios of the time to the bound and to SDPA. Head dims
+    64 and 128 (FLASH_TC_DIMS) are also held to the float64 attention.
+    Returns {"dim x heads": {"b1": ..., "b16": ...}}."""
     from pose6d_tpu_torch.ops import kernels as K
     out = {}
     for dim, heads in FLASH_INSTANCES:
         scale, row = dim ** -0.5, {}
         for bsz in (1, BATCH):
-            t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
-                              0.0)
-            errs, by = [], ""
+            t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_tc_ms"), 0.0)
+            errs, f64, by = [], [], ""
             for n, m, m_valid in FLASH_CALLS:
                 q, kk, vv = (torch.randn((bsz, s, dim, heads), device=dev,
                                          generator=g) for s in (n, m, m))
@@ -393,6 +408,10 @@ def flash_instances(dev, g) -> dict:
                 case = flash_case(f"dim {dim} H {heads} B={bsz} {n}x{m}", q,
                                   kk, vv, kv)
                 errs.append(case["max_abs_err"])
+                if dim in FLASH_TC_DIMS:
+                    case.update(flash_float64(f"dim {dim} B={bsz} {n}x{m}",
+                                              q, kk, vv, kv, scale))
+                    f64.append(case)
                 qs, ks, vs = (x.permute(0, 3, 1, 2).contiguous()
                               for x in (q, kk, vv))
                 mask = kv[:, None, None, :]
@@ -403,16 +422,45 @@ def flash_instances(dev, g) -> dict:
                 t["library_ms"] += graph_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask), 5)
-                b_ms, by = bound(4 * bsz * dim * heads * (2 * n + 2 * m)
-                                 + bsz * m,
-                                 bsz * n * m_valid * heads * 2 * dim * 2)
+                n_bytes = 4 * bsz * dim * heads * (2 * n + 2 * m) + bsz * m
+                flops = bsz * n * m_valid * heads * 2 * dim * 2
+                b_ms, by = bound(n_bytes, flops)
                 t["bound_ms"] += b_ms
+                t["bound_tc_ms"] += 1e3 * max(n_bytes / PEAK_BYTES,
+                                              3 * flops / PEAK_TF32_FLOPS)
                 emit("kernel_case", name="flash_cross_attention",
                      case=f"dim {dim} x {heads} heads, B={bsz} {n}x{m}, "
                           f"{m_valid} valid", **case)
-            row[f"b{bsz}"] = dict(t, bound_by=by, max_abs_err=max(errs))
+            row[f"b{bsz}"] = dict(
+                t, bound_by=by, max_abs_err=max(errs),
+                ms_over_bound=t["ms"] / t["bound_ms"],
+                ms_over_bound_tc=t["ms"] / t["bound_tc_ms"],
+                ms_over_library=t["ms"] / t["library_ms"])
+            if f64:
+                row[f"b{bsz}"].update(
+                    float64_err=max(c["float64_err"] for c in f64),
+                    plain_float64_err=max(c["plain_float64_err"]
+                                          for c in f64),
+                    float64_tol=f"{FLASH_TC_TOL} * max|v|")
         out[f"{dim}x{heads}"] = row
     return out
+
+
+def flash_float64(name, q, kk, vv, kv, scale) -> dict:
+    """The forward kernel and the plain f32 version against the float64
+    plain attention on the same inputs: the kernel within FLASH_TC_TOL of
+    max |v|. Returns both errors."""
+    from pose6d_tpu_torch.ops import kernels as K
+    ref = K.flash_cross_attention_plain(q.double(), kk.double(), vv.double(),
+                                        kv, scale)
+    err = (K.flash_cross_attention(q, kk, vv, kv, scale).double() - ref
+           ).abs().max().item()
+    plain = (K.flash_cross_attention_plain(q, kk, vv, kv, scale).double()
+             - ref).abs().max().item()
+    tol = FLASH_TC_TOL * vv.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"flash {name}: {err} from float64 > {tol}")
+    return dict(float64_err=err, plain_float64_err=plain, float64_tol=tol)
 
 
 def flash_backward_instances(dev, g) -> dict:
@@ -628,6 +676,33 @@ def compare_cdist(name, kern, plain, a, b, bv) -> dict:
     return dict(out=(dk, ik), max_abs_err=err, index_mismatches=mism)
 
 
+def cdist_routes(fn):
+    """fn() and the cdist kernel instances it launched, as
+    _build.instance_label prints them ("masked_topk_cdist 24xwide")."""
+    from pose6d_tpu_torch.ops.kernels._build import (LAUNCHES_BY_INSTANCE,
+                                                     instance_label)
+    before = dict(LAUNCHES_BY_INSTANCE)
+    out = fn()
+    return out, sorted(instance_label(key) for key, v in
+                       LAUNCHES_BY_INSTANCE.items() if v != before.get(key, 0))
+
+
+def timed_cdist(kern, plain, library, a, b, bv, k, reps=10) -> dict:
+    """Graph-replay ms of the kernel and the library call, the plain
+    version's ms, the bound (a and b read, the mask, d2 and indices
+    written; 2 C flops per valid pair) and the ratios of the kernel's time
+    to the bound and to the library."""
+    bsz, n, c = a.shape
+    m = b.shape[1]
+    ms = graph_ms(lambda: kern(a, b, bv), reps)
+    lib = graph_ms(lambda: library(a, b, bv), 3)
+    b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m + 8 * bsz * n * k,
+                     2 * c * n * float(bv.sum().item()))
+    return dict(ms=ms, plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
+                library_ms=lib, bound_ms=b_ms, bound_by=by,
+                ms_over_bound=ms / b_ms, ms_over_library=ms / lib)
+
+
 def real_valued_cdist(name, kern, plain, c, dev, g) -> dict:
     """Real-valued normal draws (no grid) at B = 16, 2048 x 5120: d2
     within the expansion's f32 error of the plain version (the two sum
@@ -752,17 +827,25 @@ def cdist_zoomout(name, kern, plain, library, k, dev, g) -> dict:
 # path, which takes 8 < k <= 16 above 64 features)
 WIDE_C = (96, 128)
 WIDE_C_K = (1, 5, 16, 24)
+# the wide path's second route: M too large for 8 rows' distances in
+# shared memory (cdist.wide_route), so every radix pass recomputes the
+# walk; (C, k, columns)
+WALK_ROUTE = (30, 24, 8192)
 
 
 def cdist_wide_c(dev, g) -> dict:
-    """Kernels 3 and 4 at C = 96 and 128 (features staged in chunks of
-    64) for each k of WIDE_C_K, on the spectral shape (2048 queries x
-    5120 columns, 5000 valid) at B = 1 and B = 16 on exact-grid inputs
-    with exact ties: held to the plain version bit for bit (indices and
-    d2, two launches identical), timed by graph replay beside the plain
-    version, torch.cdist + min / topk and the bound. Returns
+    """Kernels 3 and 4 at C = 96 and 128 (features staged in chunks) for
+    each k of WIDE_C_K, on the spectral shape (2048 queries x 5120
+    columns, 5000 valid) at B = 1 and B = 16 on exact-grid inputs with
+    exact ties: held to the plain version bit for bit (indices and d2,
+    two launches identical), timed by graph replay beside the plain
+    version, torch.cdist + min / topk and the bound (timed_cdist), with
+    the kernel instance and route each launched. Then the wide path's
+    walk route (WALK_ROUTE: M beyond the rows' shared memory), held and
+    timed the same way with 5 % of the columns masked. Returns
     {"masked_argmin_cdist": {"c96": {"b1", "b16"}, ...},
-    "masked_topk_cdist": {"c96": {"k=5": {"b1", "b16"}, ...}, ...}}."""
+    "masked_topk_cdist": {"c96": {"k=5": {"b1", "b16"}, ...}, ...,
+    "walk_route": {"b1", "b16"}}}."""
     n, m, m_valid = 2048, 5120, 5000
     out = {"masked_argmin_cdist": {}, "masked_topk_cdist": {}}
     for c in WIDE_C:
@@ -774,16 +857,12 @@ def cdist_wide_c(dev, g) -> dict:
                 b = grid_points((bsz, m, c), c, dev, g)
                 b[:, 1:64:2] = b[:, 0:64:2]
                 bv = torch.arange(m, device=dev).expand(bsz, m) < m_valid
-                res = compare_cdist(f"C={c} k={k} {label}", kern, plain, a,
-                                    b, bv)
+                res, routes = cdist_routes(lambda: compare_cdist(
+                    f"C={c} k={k} {label}", kern, plain, a, b, bv))
                 del res["out"]
-                b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m
-                                 + 8 * bsz * n * k, 2 * c * bsz * n * m_valid)
-                row[label] = dict(res, ms=graph_ms(lambda: kern(a, b, bv), 10),
-                                  plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
-                                  library_ms=graph_ms(
-                                      lambda: library(a, b, bv), 3),
-                                  bound_ms=b_ms, bound_by=by,
+                row[label] = dict(res, **timed_cdist(kern, plain, library, a,
+                                                     b, bv, k),
+                                  routes=routes,
                                   shape=f"a ({bsz},{n},{c}) x b ({bsz},{m},"
                                         f"{c}), {m_valid} valid, ties")
             if k == 1:
@@ -791,6 +870,25 @@ def cdist_wide_c(dev, g) -> dict:
             else:
                 out["masked_topk_cdist"].setdefault(f"c{c}", {})[f"k={k}"] = \
                     row
+    c, k, m = WALK_ROUTE
+    kern, plain, library = cdist_fns(k)
+    row = {}
+    for label, bsz in (("b1", 1), ("b16", BATCH)):
+        a = grid_points((bsz, n, c), c, dev, g)
+        b = grid_points((bsz, m, c), c, dev, g)
+        b[:, 1:64:2] = b[:, 0:64:2]
+        bv = torch.rand((bsz, m), device=dev, generator=g) > 0.05
+        res, routes = cdist_routes(lambda: compare_cdist(
+            f"walk route C={c} k={k} M={m} {label}", kern, plain, a, b, bv))
+        del res["out"]
+        if not any(r.endswith("wide_walk") for r in routes):
+            raise AssertionError(f"walk route: launched {routes}")
+        row[label] = dict(res, **timed_cdist(kern, plain, library, a, b, bv,
+                                             k, 3),
+                          routes=routes,
+                          shape=f"a ({bsz},{n},{c}) x b ({bsz},{m},{c}), 5 % "
+                                "masked, ties")
+    out["masked_topk_cdist"]["walk_route"] = row
     return out
 
 
@@ -848,7 +946,8 @@ def topk_by_k(dev, g) -> dict:
     valid / all columns (rows with fewer valid columns than k: the
     k-pass's (1e9, 0) fill up to k = 8, lax.top_k's masked columns
     above); timed by graph replay, with its bound and torch.cdist +
-    torch.topk."""
+    torch.topk (timed_cdist), and the kernel instance and route each
+    launched."""
     from pose6d_tpu_torch.ops import kernels as K
     n, m, m_valid, c = 2048, 5120, 5000, 30
     out = {}
@@ -868,15 +967,12 @@ def topk_by_k(dev, g) -> dict:
             a = grid_points((bsz, n, c), c, dev, g)
             b = grid_points((bsz, m, c), c, dev, g)
             bv = torch.arange(m, device=dev).expand(bsz, m) < m_valid
-            res = compare_cdist(f"top-{k} {label}", kern, plain, a, b, bv)
+            res, routes = cdist_routes(lambda: compare_cdist(
+                f"top-{k} {label}", kern, plain, a, b, bv))
             del res["out"]
-            b_ms, by = bound(4 * bsz * (n * c + m * c) + bsz * m
-                             + 8 * bsz * n * k, 2 * c * bsz * n * m_valid)
-            row[label] = dict(res, ms=graph_ms(lambda: kern(a, b, bv)),
-                              plain_ms=cuda_ms(lambda: plain(a, b, bv), 2),
-                              library_ms=graph_ms(lambda: library(a, b, bv),
-                                                  3),
-                              bound_ms=b_ms, bound_by=by)
+            row[label] = dict(res, **timed_cdist(kern, plain, library, a, b,
+                                                 bv, k, 20),
+                              routes=routes)
         a = grid_points((3, 2000, c), c, dev, g)
         b = grid_points((3, m, c), c, dev, g)
         bv = torch.ones((3, m), dtype=torch.bool, device=dev)

@@ -2,7 +2,8 @@
 // while the block computes on a tile it already holds. A copy of `ok =
 // false` writes zeros (source size 0); its source address must still be
 // a valid one. Used by consistency_rank_major.cu,
-// masked_consistency_sum.cu and both flash_cross_attention kernels.
+// masked_consistency_sum.cu, masked_cdist.cu and both
+// flash_cross_attention kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +19,26 @@ __device__ __forceinline__ void copy16(void* smem, const void* gmem, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    shared_addr(smem)),
                "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 16 bytes of shared memory from the first `bytes` (0 to 16) bytes at
+// gmem, zeros after them; both addresses 16-byte aligned.
+__device__ __forceinline__ void copy16n(void* smem, const void* gmem,
+                                        int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_addr(smem)),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// 8 bytes of shared memory from the first `bytes` (0 to 8) bytes at gmem,
+// zeros after them; both addresses 8-byte aligned.
+__device__ __forceinline__ void copy8n(void* smem, const void* gmem,
+                                       int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   shared_addr(smem)),
+               "l"(gmem), "r"(bytes)
                : "memory");
 }
 

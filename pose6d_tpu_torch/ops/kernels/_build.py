@@ -38,8 +38,9 @@ _L = ctypes.c_longlong
 SOURCES = {
     "masked_cdist.cu": {
         "masked_topk_cdist_splits": [_I, _I, _I, _I, _I, _I],
+        "masked_topk_cdist_wide_smem": [_I, _I],
         "masked_topk_cdist_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _L, _L, _L, _L, _L, _P]},
+                                  _I, _I, _I, _L, _L, _L, _L, _L, _P]},
     "consistency_rank_major.cu": {
         "consistency_rank_major_tiles": [_P],
         "consistency_rank_major_sqrt_check": [_P, _P],
@@ -67,8 +68,9 @@ LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
 # launches split by kernel instance, counted beside LAUNCHES: {(kernel,
 # *instance): launches}; the flash kernels' instance is the caller's
 # (head dim, heads), the cdist kernels' (K, route) with route "tiled"
-# (C <= 64), "chunked" (C > 64) or "wide" (k > 16), the rank-major
-# kernel's (k,)
+# (C <= 64), "chunked" (C > 64), or for k > 16 "wide" (the rows'
+# distances in shared memory) or "wide_walk" (recomputed), the
+# rank-major kernel's (k,)
 LAUNCHES_BY_INSTANCE: dict[tuple, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,7 @@
 """Masked cross-attention, forward and backward (kernels:
-csrc/flash_cross_attention.cu and csrc/flash_cross_attention_bwd.cu, the
-backward's products on the tensor cores in 3xTF32).
+csrc/flash_cross_attention.cu and csrc/flash_cross_attention_bwd.cu; the
+backward's products, and the forward's at head dims 64 and 128, on the
+tensor cores in 3xTF32).
 
 Port of pose6d_tpu/ops/pallas/attention.py:30 flash_cross_attention
 and of the fused backward that JAX's library flash attention brings
@@ -84,11 +85,11 @@ def kernel_instance(bsz: int, dim: int, heads: int) -> tuple:
 
 
 def flash_queries_per_block(heads: int, dim: int = 16) -> int:
-    """128 threads, each with max(1, 64 // (dim x heads)) queries of
-    every head; above 64 floats a token, dim x heads // 64 threads share
-    a query."""
+    """Up to 32 floats a token (the CUDA-core kernel) 128 threads, each
+    with 64 // (dim x heads) queries of every head; from 64 (dims 64 and
+    128, one head: the tensor-core kernel) 4 warps of 16 queries."""
     tok = dim * heads
-    return 128 * max(1, 64 // tok) // max(1, tok // 64)
+    return 128 * (64 // tok) if tok <= FLASH_MAX_TOKEN else 64
 
 
 def flash_segments(bsz: int, n: int, m: int, heads: int, sms: int,

@@ -30,6 +30,23 @@ KPASS_MAX_K = 8
 # features above this run a chunked walk, with list instances up to
 # KPASS_MAX_K and the wide path above
 CHUNKED_C = 64
+# csrc/masked_cdist.cu's wide kernel keeps the distances of its 8 rows
+# in shared memory where they fit: WIDE_SMEM_FIXED bytes of stage
+# buffers and row norms plus WIDE_SMEM_PER_COLUMN a column (the wrapper
+# checks the formula against the built kernel); else each walk it takes
+# recomputes them
+WIDE_SMEM_FIXED, WIDE_SMEM_PER_COLUMN = 66592, 32
+WIDE_ROUTES = ("wide", "wide_walk")
+
+
+def wide_route(m: int, smem_optin: int) -> str:
+    """The wide kernel's route at M columns on a card whose blocks may
+    opt in to `smem_optin` bytes of shared memory (the device property
+    shared_memory_per_block_optin; 232448 on an H100): "wide" keeps each
+    row's M distances in shared memory, computed once; "wide_walk"
+    recomputes them in each walk it takes (any M)."""
+    fits = WIDE_SMEM_FIXED + WIDE_SMEM_PER_COLUMN * m <= smem_optin
+    return WIDE_ROUTES[0] if fits else WIDE_ROUTES[1]
 
 
 def topk_instance(k: int, c: int = 1) -> int:
@@ -76,7 +93,8 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     """Kernel launch: a (B, N, C), b (B, M, C) f32, b_valid (B, M) bool
     on one CUDA device -> (d2 (B, N, k), idx (B, N, k) int32), or
     (B, N) each for k = 1 with squeeze, and the launched instance (K,
-    route) for the launch counts. The
+    route) for the launch counts (route "tiled" at C <= 64, "chunked"
+    above, or wide_route's for the wide path). The
     kernel reads a and b through their batch and row strides and pads
     the features itself, so a slice such as evecs[..., :30] is not
     copied; a tensor whose last dimension is strided is."""
@@ -105,6 +123,14 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
     lib = _build.library("masked_cdist.cu")
     splits = lib.masked_topk_cdist_splits(bsz, n, m, c, inst,
                                           _build.sm_count(a.device))
+    route = "chunked" if c > CHUNKED_C else "tiled"
+    if wide:
+        route = wide_route(m, _smem_optin(a.device))
+        want = WIDE_SMEM_FIXED + WIDE_SMEM_PER_COLUMN * m
+        if route == "wide" and lib.masked_topk_cdist_wide_smem(m, 1) != want:
+            raise RuntimeError("masked_topk_cdist: the wide kernel's shared "
+                               "memory is not the wrapper's "
+                               f"{WIDE_SMEM_FIXED} + {WIDE_SMEM_PER_COLUMN} M")
     if splits < 1:
         raise RuntimeError(f"masked_topk_cdist: no kernel instance K={inst}")
     shape = (bsz, n) if squeeze else (bsz, n, inst)
@@ -122,15 +148,21 @@ def _launch(a, b, b_valid, k: int, squeeze: bool = False):
         a.data_ptr(), b.data_ptr(), valid.data_ptr(), d2.data_ptr(),
         idx.data_ptr(), None if part_d2 is None else part_d2.data_ptr(),
         None if part_idx is None else part_idx.data_ptr(), bsz, n, m, c, inst,
-        splits, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        valid.stride(0), _build.stream_ptr(a.device))
+        splits, WIDE_ROUTES.index(route) if wide else 0, a.stride(0),
+        a.stride(1), b.stride(0), b.stride(1), valid.stride(0),
+        _build.stream_ptr(a.device))
     _build.check(code, "masked_topk_cdist")
     if inst != k:
         d2, idx = d2[..., :k].contiguous(), idx[..., :k].contiguous()
     if k > KPASS_MAX_K and not wide:
         idx = _top_k_fill(d2, idx, valid)
-    route = "wide" if wide else "chunked" if c > CHUNKED_C else "tiled"
     return d2, idx, (inst, route)
+
+
+def _smem_optin(device) -> int:
+    """The shared memory a block of the card may opt in to, in bytes."""
+    return torch.cuda.get_device_properties(
+        torch.device(device)).shared_memory_per_block_optin
 
 
 def _top_k_fill(d2, idx, b_valid):

@@ -300,23 +300,57 @@ def test_prescale_rule_is_keyed_on_the_scale():
         assert torch.equal(chain(q * s32, k), chain(q, k) * s32) == exact
 
 
-def _radix_topk(d2, k):
-    """The wide path's select in numpy: keys (d2 bits, column) with d2
-    >= 0 (a masked column +inf); four 8-bit radix passes over the bits
-    fix the k-th smallest d2, then the columns below it and the lowest
-    columns at it, ranked by (bits, column); +inf comes out as 1e9."""
+def _radix_topk(d2, k, rows=True):
+    """The wide kernel's select in numpy: keys (d2 bits, column) with d2
+    >= 0 (a masked column +inf); 4-bit radix passes over the bits fix the
+    k-th smallest d2, then the columns below it and the lowest columns
+    at it, ranked by (bits, column); +inf comes out as 1e9. For k <= 64
+    the select runs over candidates: the columns at or below the largest
+    of the 32 lanes' ceil(k / 32)-th smallest bits (lane l takes the
+    columns l, l + 32, ...), at most 1024 of them, with passes that start
+    below the bits the row's least and largest finite d2 share; fewer
+    than k finite columns take every finite column and the first masked
+    ones. Else the whole row: `rows`, the route that keeps the row's d2 in
+    shared memory, starts below the shared bits too; the recomputing
+    walk's passes run over bits 30 .. 0, +inf included."""
     bits = d2.astype(np.float32).view(np.uint32) & np.uint32(0x7fffffff)
-    prefix, fixed, need = np.uint32(0), np.uint32(0), k
-    for shift in (24, 16, 8, 0):
-        match = (bits & fixed) == prefix
-        hist = np.bincount((bits[match] >> shift) & 255, minlength=256)
+    inf = np.uint32(0x7f800000)
+    finite = bits[bits < inf]
+    keys, cols_of = bits, np.arange(len(bits))
+    if k <= len(finite) and k <= 64:
+        j = -(-k // 32)
+        lanes = [np.sort(bits[lane::32]) for lane in range(32)]
+        bound = max(int(v[j - 1]) if len(v) >= j else 0xffffffff
+                    for v in lanes)
+        cand = np.flatnonzero(bits <= np.uint32(min(bound, 0xffffffff)))
+        if len(cand) <= 1024:
+            keys, cols_of, rows = bits[cand], cand, True
+    top, prefix, fixed, need = 30, 0, 0x80000000, k
+    if k > len(finite):
+        top, prefix, need = -1, int(inf), k - len(finite)
+    elif rows:
+        lo, hi = int(bits.min()), int(finite.max())
+        if lo == hi:
+            top, prefix = -1, lo
+        else:
+            top = (lo ^ hi).bit_length() - 1
+            fixed = ~((2 << top) - 1) & 0xffffffff
+            prefix = lo & fixed
+    while top >= 0:
+        width = min(4, top + 1)
+        shift, mask = top + 1 - width, (1 << width) - 1
+        match = (keys & np.uint32(fixed)) == np.uint32(prefix)
+        hist = np.bincount((keys[match] >> shift) & mask, minlength=16)
         cum = np.cumsum(hist)
         b = int(np.searchsorted(cum, need))      # first bin with cum >= need
         need -= int(cum[b - 1]) if b else 0
-        prefix |= np.uint32(b << shift)
-        fixed |= np.uint32(255 << shift)
-    cols = np.flatnonzero(bits < prefix)
-    cols = np.concatenate([cols, np.flatnonzero(bits == prefix)[:need]])
+        prefix |= b << shift
+        fixed |= mask << shift
+        top = shift - 1
+    prefix = np.uint32(prefix)
+    sel = np.concatenate([np.flatnonzero(keys < prefix),
+                          np.flatnonzero(keys == prefix)[:need]])
+    cols = cols_of[sel]
     assert len(cols) == k
     order = np.lexsort((cols, bits[cols]))
     out = bits[cols][order].view(np.float32).copy()
@@ -329,10 +363,11 @@ def _radix_topk(d2, k):
 def test_wide_topk_plan_matches_plain(k, n_valid):
     """Above the longest list instance (above 8 past 64 features) the
     wrapper names the wide path (topk_instance(k, c) == k) and hands the
-    kernel a (B, N, k) scratch; its radix select, emulated here on the
-    kernel's d2, gives the plain top-k (lax.top_k's order and fill)
-    exactly: exact ties across columns, rows with fewer valid columns
-    than k, and a row without any."""
+    kernel a (B, N, k) scratch; its select on both routes (over the
+    candidates below the lanes' bound, or the whole row), emulated here
+    on the kernel's d2, gives the plain top-k (lax.top_k's order and
+    fill) exactly: exact ties across columns, rows with fewer valid
+    columns than k, and a row without any."""
     assert kcdist.topk_instance(k, 96) == k
     assert kcdist.topk_instance(k) == (16 if k <= 16 else k)
     rng = np.random.default_rng(k + n_valid)
@@ -347,9 +382,10 @@ def test_wide_topk_plan_matches_plain(k, n_valid):
     d2 = ((a[:, None] - b[None]) ** 2).sum(-1)
     d2[:, ~valid] = np.inf
     for r in range(len(a)):
-        od, oi = _radix_topk(d2[r], k)
-        np.testing.assert_array_equal(oi, pi[0, r].numpy())
-        np.testing.assert_array_equal(od, pd[0, r].numpy())
+        for rows in (True, False):
+            od, oi = _radix_topk(d2[r], k, rows)
+            np.testing.assert_array_equal(oi, pi[0, r].numpy())
+            np.testing.assert_array_equal(od, pd[0, r].numpy())
 
 
 def test_wide_topk_refuses_more_than_m_columns():
@@ -369,11 +405,11 @@ CARDS = ((132, 2), (132, 3), (7, 1))
                                      (8, 5120, 2048), (3, 2000, 5002),
                                      (2, 7, 100000)])
 def test_segment_plans_at_the_wide_instances(dim, bsz, n, m):
-    """The forward at DIM 64 (128 queries a block) and 128 (64: two
-    threads a query) and the backward at 32 and 16 rows a block: every
-    key or query tile in one segment, none past the mask words' reach,
-    two blocks on every SM as far as the tiles allow."""
-    assert kattn.flash_queries_per_block(1, dim) == {64: 128, 128: 64}[dim]
+    """The forward at DIM 64 and 128 (the tensor-core kernel: 4 warps of
+    16 queries a block) and the backward at 32 and 16 rows a block:
+    every key or query tile in one segment, none past the mask words'
+    reach, two blocks on every SM as far as the tiles allow."""
+    assert kattn.flash_queries_per_block(1, dim) == {64: 64, 128: 64}[dim]
     rows = kattn.flash_backward_rows(dim, 1)
     assert rows == {64: 32, 128: 16}[dim]
     for sms, per_sm in CARDS:
