@@ -59,8 +59,11 @@ kernel_check holds each of those instances against its plain version
 (flash at those head shapes, top-k at k = 24, 32, 64, cdist at C = 96
 and 128, rank-major at k = 24 and 32), the wide top-k also on its second
 route (M = 8192 columns, beyond the rows' shared memory), the flash
-forward at head dims 64 and 128 (the tensor-core kernel) also against the
-float64 attention, and prints each cdist shape's kernel route and each
+forward at head dims 64 and 128 (the tensor-core kernel) and the
+backward there (its wide kernels) also against the float64 attention,
+both consistency kernels at endpoint widths 2, 8 and 30 (their any-width
+instances) and their 3-D sums bit for bit as before (sha256 of seeded
+one-tile inputs), and prints each cdist shape's kernel route and each
 redesigned shape's time over its bound and over the library call.
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
@@ -224,6 +227,12 @@ def check_kernels(dev) -> dict:
     rows["masked_consistency_sum"] = check_masked_consistency(dev, g)
     rows["masked_topk_cdist"]["by_k"] = topk_by_k(dev, g)
     rows["consistency_sum_rank_major"]["by_k"] = rank_major_by_k(dev, g)
+    # its own generator: the checks after it keep their inputs
+    widths = consistency_widths(dev,
+                                torch.Generator(device=dev).manual_seed(16))
+    rows["consistency_sum_rank_major"]["widths"] = widths["rank_major"]
+    rows["masked_consistency_sum"]["widths"] = widths["pc_major"]
+    rows["masked_consistency_sum"]["c3_bits"] = widths["c3_bits"]
     wide_c = cdist_wide_c(dev, g)
     for name in ("masked_topk_cdist", "masked_argmin_cdist"):
         rows[name]["wide_c"] = wide_c[name]
@@ -463,22 +472,63 @@ def flash_float64(name, q, kk, vv, kv, scale) -> dict:
     return dict(float64_err=err, plain_float64_err=plain, float64_tol=tol)
 
 
+# the backward at head dims 64 and 128 (the wide kernels) is also held
+# to autograd through the float64 plain attention, per tensor within
+# FLASH_BWD_F64_TOL of its largest entry, the relative tolerance it is
+# held to against the plain f32 version (the card's mma.sync rounds
+# inside each product, so the kernels land several times further from
+# float64 than the plain f32 version); the plain f32 version's error
+# printed beside
+FLASH_BWD_F64_TOL = 1e-4
+
+
+def flash_backward_float64(name, q, kk, vv, kv, dout, scale,
+                           got) -> dict:
+    """The backward kernel's (dq, dk, dv) `got` and the plain f32
+    version's against autograd through the float64 plain attention on the
+    same inputs; the kernel within FLASH_BWD_F64_TOL of max |ref| per
+    tensor. Returns both errors (the largest over the three tensors,
+    relative to each tensor's max |ref|)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    ref = K.flash_cross_attention_backward_plain(
+        q.double(), kk.double(), vv.double(), kv, scale, dout.double())
+    plain = K.flash_cross_attention_backward_plain(q, kk, vv, kv, scale,
+                                                   dout)
+    err = plain_err = 0.0
+    for a, b, r in zip(got, plain, ref):
+        top = r.abs().max().item()
+        e = (a.double() - r).abs().max().item() / top
+        if not e <= FLASH_BWD_F64_TOL:
+            raise AssertionError(f"flash backward {name}: {e} of max|ref| "
+                                 f"from float64 > {FLASH_BWD_F64_TOL}")
+        err = max(err, e)
+        plain_err = max(plain_err, (b.double() - r).abs().max().item() / top)
+    return dict(float64_err=err, plain_float64_err=plain_err,
+                float64_tol=f"{FLASH_BWD_F64_TOL} * max|ref| per tensor")
+
+
 def flash_backward_instances(dev, g) -> dict:
     """The backward's FLASH_INSTANCES at B = 8 on
     FLASH_BWD_CALLS (frame 3 without keys), held to autograd through the
-    plain version as flash_backward_case holds the default instance;
-    timed by graph replay, autograd through SDPA beside. Returns {"dim x
-    heads": {...}} with both calls summed."""
+    plain version as flash_backward_case holds the default instance, and
+    at head dims 64 and 128 (FLASH_TC_DIMS) to the float64 one
+    (flash_backward_float64); timed by graph replay, autograd through
+    SDPA beside. Returns {"dim x heads": {...}} with both calls summed."""
     from pose6d_tpu_torch.ops import kernels as K
     out = {}
     for dim, heads in FLASH_INSTANCES:
         t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                            "bound_tc_ms"), 0.0)
-        errs, by, segs = [], "", []
+        errs, by, segs, f64 = [], "", [], []
         for n, m, n_valid, m_valid in FLASH_BWD_CALLS:
             res, kern, (q, kk, vv, kv, dout) = flash_backward_case(
                 f"dim {dim} H {heads} {n}x{m}", dev, g, n, m, n_valid,
                 m_valid, dim=dim, heads=heads)
+            if dim in FLASH_TC_DIMS:
+                res.update(flash_backward_float64(
+                    f"dim {dim} {n}x{m}", q, kk, vv, kv, dout, dim ** -0.5,
+                    kern()))
+                f64.append(res)
             bnd = backward_bounds(TRAIN_BATCH, n, m, res["pairs"], dim, heads)
             res.update(ms=graph_ms(kern), **bnd)
             emit("kernel_case", name="flash_cross_attention_backward",
@@ -500,7 +550,13 @@ def flash_backward_instances(dev, g) -> dict:
                 t[key] += res[key]
             by = bnd["bound_by"]
         out[f"{dim}x{heads}"] = dict(t, bound_by=by, max_abs_err=max(errs),
-                                     segments=segs)
+                                     segments=segs,
+                                     ms_over_library=t["ms"] / t["library_ms"])
+        if f64:
+            out[f"{dim}x{heads}"].update(
+                float64_err=max(c["float64_err"] for c in f64),
+                plain_float64_err=max(c["plain_float64_err"] for c in f64),
+                float64_tol=f64[0]["float64_tol"])
     return out
 
 
@@ -1222,16 +1278,19 @@ def consistency_reference(ca, cb, w):
     """Per frame in float64 from direct differences: the sums, the
     scale sum_i w_i (da + db), and a bound on what the f32 expansion
     |x|^2 - 2xy + |y|^2 (the plain version, like the TPU kernel) can
-    add to the sums: its error in d^2 is at most 8 eps (|x|^2 + |y|^2),
-    which moves d = sqrt(d^2) by at most min(sqrt(that), that / d)."""
+    add to the sums: at width C its error in d^2 is at most (C + 5) eps
+    (|x|^2 + |y|^2) (8 eps at C = 3: sums of C products, then two
+    additions), which moves d = sqrt(d^2) by at most min(sqrt(that),
+    that / d)."""
     ref, scale, expand = [], [], []
+    c = ca.shape[-1]
     for a, b, wf in zip(ca.double(), cb.double(), w.double()):
         da, db = (torch.cdist(x, x, compute_mode="donot_use_mm_for_euclid_dist")
                   for x in (a, b))
         bnd = torch.zeros_like(da)
         for x, d in ((a, da), (b, db)):
             n2 = (x * x).sum(-1)
-            e = 8 * F32_EPS * (n2[:, None] + n2[None])
+            e = (c + 5) * F32_EPS * (n2[:, None] + n2[None])
             bnd += torch.minimum(e.sqrt(), e / d.clamp_min(1e-30))
         ref.append(wf @ (da - db).abs())
         scale.append(wf @ (da + db))
@@ -1239,22 +1298,24 @@ def consistency_reference(ca, cb, w):
     return torch.stack(ref), torch.stack(scale), torch.stack(expand)
 
 
-def consistency_inputs(dev, g, bsz: int, shared: bool = False):
+def consistency_inputs(dev, g, bsz: int, shared: bool = False, c: int = 3):
     """PC-major consistency inputs, P = 10240: CAD-side endpoints in the
-    model frame (+-10 cm), PC-side ones ~100 cm down the optical axis,
-    half of them consistent, 70 % of the rows live at random. `shared`:
+    model frame (+-10 cm), PC-side ones ~100 cm down the optical axis
+    (the last axis at width c), half of them consistent, 70 % of the
+    rows live at random. `shared` (3-D only):
     as on the PC-major filter's real inputs, cb comes in groups of 5
     equal points (the 5 candidates of one PC point; pair index = PC
     point * 5 + rank), the CAD endpoints are drawn from 1024 points
     (nearby PC points share candidates), and the live rows are the
     first 2000 or 622 PC points' groups."""
     B, P = bsz, 5 * 2048
-    rot = torch.linalg.qr(torch.randn((3, 3), device=dev, generator=g))[0]
-    shift = torch.tensor([0.0, 0.0, 100.0], device=dev)
+    rot = torch.linalg.qr(torch.randn((c, c), device=dev, generator=g))[0]
+    shift = torch.zeros(c, device=dev)
+    shift[-1] = 100.0
     if not shared:
-        ca = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+        ca = torch.rand((B, P, c), device=dev, generator=g) * 20 - 10
         cb = ca @ rot.T + shift
-        noise = torch.rand((B, P, 3), device=dev, generator=g) * 20 - 10
+        noise = torch.rand((B, P, c), device=dev, generator=g) * 20 - 10
         cb = torch.where(torch.rand((B, P, 1), device=dev, generator=g) < 0.5,
                          cb + 0.05 * noise, cb + noise)
         w = (torch.rand((B, P), device=dev, generator=g) < 0.7).float()
@@ -1358,6 +1419,133 @@ def check_masked_consistency(dev, g) -> dict:
                "back-to-back calls from the host")
 
 
+# endpoint widths other than 3 (both consistency kernels' any-width
+# instances): each held to its plain version at B = 16, and timed at
+# CONSISTENCY_TIMED
+CONSISTENCY_WIDTHS = (2, 8, 30)
+CONSISTENCY_TIMED = (8, 30)
+# sha256 of the 3-D instances' sums on consistency_c3_digests' inputs, as
+# the kernels gave them before the any-width instances were added (the
+# parent tree built and run in the same call, H100 80GB HBM3, 700 W). To
+# re-record them, run consistency_c3_digests on a build of the tree whose
+# bits are the reference; a mismatch prints the digests it found.
+CONSISTENCY_C3_DIGESTS = {
+    "rank_major":
+        "42b6ae491ac1d963a8c8fad369b3e887176b2daa9e85769fb44495bdd2089236",
+    "pc_major":
+        "02534b01d82b5879cbee3a886a616c8451c2d75c362b5291e69a28677c1bca2b"}
+
+
+def consistency_c3_digests(dev) -> dict:
+    """sha256 of both consistency kernels' sums at 3-D endpoints on inputs
+    made from a numpy seed, at one row tile (V2 = 32 and k = 5; P = 256),
+    where every card plans one segment, so the bits depend on the kernels'
+    code alone."""
+    import hashlib
+    from pose6d_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(16)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    v2, k, bsz = 32, 5, 2
+    cad = rng.normal(size=(bsz, k * v2, 3)) * 5
+    pc = rng.normal(size=(bsz, v2, 3)) * 5
+    dpc = np.sqrt(((pc[:, :, None] - pc[:, None]) ** 2).sum(-1))
+    w = rng.random((bsz, k * v2)) < 0.7
+    ca = rng.normal(size=(bsz, 256, 3)) * 5
+    cb = ca + rng.normal(size=(bsz, 256, 3)) + [0.0, 0.0, 100.0]
+    wp = rng.random((bsz, 256)) < 0.7
+    sums = {"rank_major": K.consistency_sum_rank_major(t(cad), t(dpc), t(w),
+                                                       v2),
+            "pc_major": K.masked_consistency_sum(t(ca), t(cb), t(wp))}
+    return {name: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+            for name, x in sums.items()}
+
+
+def consistency_widths(dev, g) -> dict:
+    """Both consistency kernels at the endpoint widths CONSISTENCY_WIDTHS
+    (their any-width instances) on the main path's shapes at B = 16 (k =
+    5, V2 = 2048: P = 10240; 70 % of the rows live): rank-major against
+    the plain version within 1e-4 of the largest sum, PC-major as
+    consistency_case holds the 3-D kernel (float64 and the plain version,
+    with the expansion's bound at width C); two launches identical; at
+    CONSISTENCY_TIMED the same calls timed by graph replay beside the
+    plain version, cdist + einsum and the bound. The 3-D instances' bits
+    held to CONSISTENCY_C3_DIGESTS. Returns {"rank_major": {"C=c": ...},
+    "pc_major": {...}, "c3_bits": ...}."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.geometry import pairwise_sqdist
+    v2, p, bsz = 2048, 5 * 2048, BATCH
+    rm, pcm = {}, {}
+    for c in CONSISTENCY_WIDTHS:
+        cad = torch.rand((bsz, p, c), device=dev, generator=g) * 20 - 10
+        pc = torch.rand((bsz, v2, c), device=dev, generator=g) * 20 - 10
+        dpc = torch.sqrt(pairwise_sqdist(pc, pc))
+        w = (torch.rand((bsz, p), device=dev, generator=g) < 0.7).float()
+        o1 = K.consistency_sum_rank_major(cad, dpc, w, v2)
+        ref = K.consistency_sum_rank_major_plain(cad, dpc, w, v2)
+        err = (o1 - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()  # f32 sums of ~7k terms
+        if not (torch.equal(o1, K.consistency_sum_rank_major(cad, dpc, w, v2))
+                and err <= tol):
+            raise AssertionError(f"rank-major C={c}: error {err} > {tol} or "
+                                 "launches differ")
+        row = dict(max_abs_err=err, tol=tol)
+        if c in CONSISTENCY_TIMED:
+            b_ms, by = bound(4 * bsz * (c * p + p + v2 * v2 + p),
+                             (2 * c + 6) * float(w.sum().item()) * p)
+
+            def library():     # as row 2's: cdist, the PC table tiled
+                da = torch.cdist(cad, cad)
+                return torch.einsum("bi,bij->bj", w,
+                                    (da - dpc.repeat(1, 5, 5)).abs_())
+            row.update(
+                ms=graph_ms(lambda: K.consistency_sum_rank_major(cad, dpc, w,
+                                                                 v2)),
+                plain_ms=cuda_ms(lambda: K.consistency_sum_rank_major_plain(
+                    cad, dpc, w, v2), 2),
+                library_ms=cuda_ms(library, 2), bound_ms=b_ms, bound_by=by)
+        rm[f"C={c}"] = row
+        emit("kernel_case", name="consistency_sum_rank_major",
+             case=f"C={c}, B=16, k=5, V2=2048, 70 % live", **row)
+        del cad, pc, dpc, w, o1, ref
+
+        # held on all 16 frames, the call that is timed
+        ca, cb, w = consistency_inputs(dev, g, bsz, c=c)
+        row = consistency_case(f"C={c}", ca, cb, w)
+        if c in CONSISTENCY_TIMED:
+            # per live pair the lesser of two ways to the sums: direct
+            # differences (2 x (C differences, C multiply-adds) = 6 C - 2,
+            # FMA as 2) or the expansion on precomputed norms (2 x (2 C
+            # for x . y, 3 for |x|^2 - 2 x.y + |y|^2)); then 2 sqrt, a
+            # difference, an abs and one FMA (6)
+            b_ms, by = bound(4 * bsz * p * (c + c + 1 + 1),
+                             (min(6 * c - 2, 4 * c + 6) + 6)
+                             * float(w.sum().item()) * p)
+
+            def library():
+                da = torch.cdist(ca, ca)
+                db = torch.cdist(cb, cb)
+                return torch.einsum("bi,bij->bj", w, (da - db).abs_())
+            row.update(
+                ms=graph_ms(lambda: K.masked_consistency_sum(ca, cb, w)),
+                plain_ms=cuda_ms(lambda: K.masked_consistency_sum_plain(
+                    ca, cb, w), 2),
+                library_ms=cuda_ms(library, 2), bound_ms=b_ms, bound_by=by)
+        pcm[f"C={c}"] = row
+        emit("kernel_case", name="masked_consistency_sum",
+             case=f"C={c}, B=16, P=10240, 70 % live",
+             **row)
+        del ca, cb, w
+    digests = consistency_c3_digests(dev)
+    if digests != CONSISTENCY_C3_DIGESTS:
+        raise AssertionError(f"3-D consistency sums changed: {digests}, "
+                             f"were {CONSISTENCY_C3_DIGESTS}")
+    return {"rank_major": rm, "pc_major": pcm,
+            "c3_bits": "the 3-D instances' sums equal "
+                       "CONSISTENCY_C3_DIGESTS"}
+
+
 def sass_loop_counts() -> dict:
     """Instructions that the sm_90a builds issue in the inner loops of the
     kernels redesigned for issue rate, read with cuobjdump -sass: the two
@@ -1367,19 +1555,25 @@ def sass_loop_counts() -> dict:
     forward's per step of 8 keys x 4 (query, head) rows (the loop from
     its chunk test to its back branch), and the flash backward's per
     chunk of 8 walked rows x 16 rows x 2 heads (the loop around the
-    tensor-core products, HMMA counted apart). "not measured" without
-    cuobjdump."""
+    tensor-core products, HMMA counted apart), and of its wide kernels
+    (DIM 64 and 128, one head) per chunk of 8 walked rows x 16 rows at the
+    full DIM. "not measured" where cuobjdump is missing or fails; a
+    kernel name or loop shape that no longer matches raises."""
     import re
     import shutil
     from pose6d_tpu_torch.ops.kernels import _build
     from pose6d_tpu_torch.ops.kernels.consistency import PCM_COL_TILE
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
+    dumps = {}  # one cuobjdump per library
+
     def function(source, name):
-        sass = subprocess.run([tool, "-sass", str(_build._target(source))],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-        body = next(f for f in sass.split("Function : ")[1:]
+        if source not in dumps:
+            dumps[source] = subprocess.run(
+                [tool, "-sass", str(_build._target(source))],
+                capture_output=True, text=True, check=True,
+                timeout=120).stdout
+        body = next(f for f in dumps[source].split("Function : ")[1:]
                     if name in f.split("\n")[0])
         return [(int(a, 16), t) for a, t in re.findall(
             r"/\*([0-9a-f]{4,5})\*/\s+([^;]*);", body)]
@@ -1413,15 +1607,22 @@ def sass_loop_counts() -> dict:
                                 "consistency_rm_kernelILi5ELi5E"))
         pcm = row_entry(function("masked_consistency_sum.cu",
                                  "masked_consistency_kernel"))
-        ins = function("flash_cross_attention.cu", "flash_fwd_kernelILi2")
+        # the default refiner's instance (16 x 2, q pre-scaled by 1 / 4)
+        ins = function("flash_cross_attention.cu",
+                       "flash_fwd_kernelILi16ELi2ELb1E")
         lds = [i for i, (_, t) in enumerate(ins) if t.startswith("LDS.128")]
         lo = max(i for i in range(lds[0]) if "BRA" in ins[i][1]) + 1
         step = branch_after(ins, lds[-1]) - lo + 1
         bwd = {name: mma_loop(function("flash_cross_attention_bwd.cu",
-                                       f"flash_bwd_{name}_kernelILi2"))
+                                       f"flash_bwd_{name}_kernelILi16ELi2E"))
                for name in ("dq", "dkv")}
-    except (OSError, subprocess.SubprocessError, StopIteration,
-            ValueError, AttributeError, IndexError) as e:
+        wide = {(name, dim): mma_loop(function(
+            "flash_cross_attention_bwd.cu",
+            f"flash_bwd_{name}_wide_kernelILi{dim}E"))
+            for name in ("dq", "dkv") for dim in (64, 128)}
+    except (OSError, subprocess.SubprocessError) as e:
+        # cuobjdump missing or failing; a kernel that is not found or a
+        # loop that does not parse raises, and the phase fails
         return {"sass": f"not measured ({type(e).__name__})"}
     # a chunk is 8 x 16 (query, key) x 2 heads with 3 mma per product and
     # k-step: 18 HMMA per head in the dq kernel (s, dout . v over 2
@@ -1433,6 +1634,13 @@ def sass_loop_counts() -> dict:
         chunks = h / (36 if name == "dq" else 48)
         per[f"flash_bwd_{name}_per_chunk"] = n / chunks
         per[f"flash_bwd_{name}_hmma_per_chunk"] = h / chunks
+    # a wide chunk is 8 x 16 (walked, own) rows at the full DIM: 3 mma per
+    # k-step of s and dout . v (DIM / 8 each) and per n-tile of each
+    # update (DIM / 8; one update in dq, two in dkv)
+    for (name, dim), (n, h) in wide.items():
+        chunks = h / (3 * (3 if name == "dq" else 4) * dim // 8)
+        per[f"flash_bwd_{name}_wide_{dim}_per_chunk"] = n / chunks
+        per[f"flash_bwd_{name}_wide_{dim}_hmma_per_chunk"] = h / chunks
     return {"rank_major_per_row_entry": rm, "rank_major_per_pair": rm / 10,
             "pc_major_per_row_entry": pcm,
             "pc_major_per_pair": pcm / (PCM_COL_TILE // 32),
@@ -5070,7 +5278,7 @@ def run_all() -> int:
                      **{k: row[k] for k in keys},
                      **{k: row[k] for k in ("b1", "c64", "call_ms",
                                             "bound_tc_ms", "instances",
-                                            "by_k", "wide_c")
+                                            "by_k", "wide_c", "widths")
                         if k in row}})
     print(json.dumps({"kernels": line}))
     print(gpu_line)

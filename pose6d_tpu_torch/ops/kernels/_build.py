@@ -45,11 +45,15 @@ SOURCES = {
         "consistency_rank_major_tiles": [_P],
         "consistency_rank_major_sqrt_check": [_P, _P],
         "consistency_sum_rank_major_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                           _I, _P]},
+                                           _I, _P],
+        "consistency_sum_rank_major_wide_f32": [_P, _P, _P, _P, _P, _P, _I,
+                                                _I, _I, _I, _I, _P]},
     "masked_consistency_sum.cu": {
         "masked_consistency_tiles": [_P],
         "masked_consistency_sum_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                       _P]},
+                                       _P],
+        "masked_consistency_sum_wide_f32": [_P, _P, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _P]},
     "flash_cross_attention.cu": {
         "flash_cross_attention_tiles": [_I, _I, _P],
         "flash_cross_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -70,7 +74,8 @@ LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
 # (head dim, heads), the cdist kernels' (K, route) with route "tiled"
 # (C <= 64), "chunked" (C > 64), or for k > 16 "wide" (the rows'
 # distances in shared memory) or "wide_walk" (recomputed), the
-# rank-major kernel's (k,)
+# rank-major kernel's (k,) at 3-D endpoints and (k, "C<width>") at other
+# widths, the PC-major kernel's ("C<width>",) at widths other than 3
 LAUNCHES_BY_INSTANCE: dict[tuple, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

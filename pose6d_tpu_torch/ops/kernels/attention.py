@@ -120,19 +120,26 @@ def flash_segments_on(device, bsz: int, n: int, m: int, heads: int,
 
 
 # csrc/flash_cross_attention_bwd.cu's tiling (checked against the built
-# kernels): the queries' padding unit (64 rows) and walked rows per
-# tile (keys, queries); rows per block (queries of
-# the dq kernel, keys of the dkv kernel) are flash_backward_rows; the
-# most tiles one segment walks is FLASH_MAX_SEGMENT_TILES, as in the
-# forward
-FLASH_BWD_ROWS, FLASH_BWD_TILE = 64, 32
+# kernels): rows per block (queries of the dq kernel, keys of the dkv
+# kernel) up to 32 floats a token and at DIM 64, 128 at DIM 128
+# (flash_backward_rows; the queries are padded to whole dq blocks), and
+# walked rows per tile (keys, queries); the most tiles one segment walks
+# is FLASH_MAX_SEGMENT_TILES, as in the forward
+FLASH_BWD_ROWS, FLASH_BWD_WIDE_ROWS, FLASH_BWD_TILE = 64, 128, 32
 
 
 def flash_backward_rows(dim: int = 16, heads: int = 2) -> int:
     """Rows a backward block owns at the kernel instance (dim, heads):
-    4 warps of 16 rows, each row group shared by dim x heads // 32 warps
-    above 32 floats a token."""
-    return FLASH_BWD_ROWS // max(1, dim * heads // 32)
+    warps of 16 rows at the full dim, 4 of them (8 at dim 128, one head:
+    the wide kernels' 8 warps)."""
+    return FLASH_BWD_WIDE_ROWS if dim * heads > 64 else FLASH_BWD_ROWS
+
+
+def flash_backward_npad(n: int, rows: int = FLASH_BWD_ROWS) -> int:
+    """The backward's query count padded to whole dq blocks of `rows`
+    rows (the prep pass's (L, D) rows and live words, and the dkv
+    kernel's walk)."""
+    return -(-n // rows) * rows
 
 
 def flash_backward_segments(bsz: int, n: int, m: int, sms: int,
@@ -150,9 +157,9 @@ def flash_backward_segments(bsz: int, n: int, m: int, sms: int,
         return _build.plan_segments(
             -(-owned // rows) * bsz, tiles, sms, per_sm,
             least=-(-tiles // FLASH_MAX_SEGMENT_TILES))
-    # the dkv kernel walks the queries padded to whole 64-row words
-    n_pad = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS
-    return plan(n, m, per_sm_dq), plan(m, n_pad, per_sm_dkv)
+    # the dkv kernel walks the queries padded to whole dq blocks
+    return plan(n, m, per_sm_dq), plan(m, flash_backward_npad(n, rows),
+                                        per_sm_dkv)
 
 
 def flash_backward_segments_on(device, bsz: int, n: int, m: int,
@@ -379,7 +386,7 @@ def _backward_launch(q, k, v, kv_valid, sm_scale: float, out, lse, dout,
     # per (query, head) (L log2 e, D) and per 32 queries a word of live
     # rows, for queries padded to whole dq blocks; the segments' partial
     # dq or (dk, dv), merged in segment order by the kernel's last passes
-    n_pad = -(-n // FLASH_BWD_ROWS) * FLASH_BWD_ROWS
+    n_pad = flash_backward_npad(n, flash_backward_rows(dim, heads))
     ld = torch.empty((bsz, n_pad, heads, 2), dtype=torch.float32, device=dev)
     words = torch.empty((bsz, n_pad // FLASH_BWD_TILE), dtype=torch.int32,
                         device=dev)

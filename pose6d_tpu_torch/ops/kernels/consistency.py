@@ -6,7 +6,10 @@ consistency_sum_rank_major (the PC side read from a (V2, V2) table)
 and :136 masked_consistency_sum (both endpoints explicit, PC-major).
 Each is a torch.library op (pose6d_tpu_torch::consistency_sum_rank_major,
 ::masked_consistency_sum): the dispatcher runs the hand-written kernel on
-CUDA tensors and the plain PyTorch version beside it on CPU tensors.
+CUDA tensors and the plain PyTorch version beside it on CPU tensors. Both
+take endpoints of any width C >= 1, as the TPU functions do: C = 3 (what
+every caller passes) on the kernels' 3-D instances, other widths on
+their any-width instances.
 """
 from __future__ import annotations
 
@@ -111,14 +114,11 @@ def consistency_sum_rank_major_plain(coords_cad, dpc, w, v2: int):
 
 
 def _rank_major_launch(coords_cad, dpc, w, v2: int):
-    """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
+    """Kernel launch on CUDA tensors (the op's CUDA implementation): the
+    3-D instance at C = 3, the any-width one otherwise."""
     bsz, p, c = coords_cad.shape
-    if c != 3:
-        raise ValueError(f"the kernel takes 3-D endpoints, got width {c} "
-                         "(ROADMAP.md, section 2, row 2: no caller passes "
-                         "another)")
-    if v2 < 1 or p % v2:
-        raise ValueError(f"kernel takes (B, k * v2, 3): "
+    if v2 < 1 or p % v2 or c < 1:
+        raise ValueError(f"kernel takes (B, k * v2, C >= 1): "
                          f"{tuple(coords_cad.shape)}, v2={v2}")
     k = p // v2
     if k < 1:
@@ -133,17 +133,26 @@ def _rank_major_launch(coords_cad, dpc, w, v2: int):
     lib = _build.library("consistency_rank_major.cu")
     segments = rank_major_segments_on(w.device, bsz, v2, k)
     out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
-    # the endpoints packed as (x, y, z, |a|^2) rows, and the segments'
-    # partial sums (added in segment order by the kernel's last pass)
-    rows = torch.empty((bsz, p, 4), dtype=torch.float32, device=w.device)
+    # the endpoints packed as (x, y, z, |a|^2) rows (at other widths the
+    # features zero-padded to whole float4s, then |a|^2 in a float4 of its
+    # own), and the segments' partial sums (added in segment order by the
+    # kernel's last pass)
+    rows = torch.empty((bsz, p, 4 if c == 3 else 4 * (-(-c // 4) + 1)),
+                       dtype=torch.float32, device=w.device)
     part = (torch.empty((bsz, segments, p), dtype=torch.float32,
                         device=w.device) if segments > 1 else None)
-    code = lib.consistency_sum_rank_major_f32(
-        coords_cad.data_ptr(), dpc.data_ptr(), w.data_ptr(), out.data_ptr(),
-        rows.data_ptr(), None if part is None else part.data_ptr(), bsz, v2,
-        k, segments, _build.stream_ptr(w.device))
+    ptrs = (coords_cad.data_ptr(), dpc.data_ptr(), w.data_ptr(),
+            out.data_ptr(), rows.data_ptr(),
+            None if part is None else part.data_ptr(), bsz, v2, k)
+    if c == 3:
+        code = lib.consistency_sum_rank_major_f32(
+            *ptrs, segments, _build.stream_ptr(w.device))
+    else:
+        code = lib.consistency_sum_rank_major_wide_f32(
+            *ptrs, c, segments, _build.stream_ptr(w.device))
     _build.check(code, "consistency_sum_rank_major")
-    _build.count_launch("consistency_sum_rank_major", (k,))
+    _build.count_launch("consistency_sum_rank_major",
+                        (k,) if c == 3 else (k, f"C{c}"))
     return out
 
 
@@ -160,13 +169,10 @@ def masked_consistency_sum_plain(ca, cb, w):
 
 
 def _pc_major_launch(ca, cb, w):
-    """Kernel launch on CUDA tensors (the op's CUDA implementation)."""
+    """Kernel launch on CUDA tensors (the op's CUDA implementation): the
+    3-D instance at C = 3, the any-width one otherwise."""
     bsz, p, c = ca.shape
-    if c != 3:
-        raise ValueError(f"the kernel takes 3-D endpoints, got width {c} "
-                         "(ROADMAP.md, section 2, row 5: no caller passes "
-                         "another)")
-    if cb.shape != ca.shape or w.shape != (bsz, p) or p == 0:
+    if cb.shape != ca.shape or w.shape != (bsz, p) or p == 0 or c == 0:
         raise ValueError(f"bad shapes ca{tuple(ca.shape)} cb{tuple(cb.shape)} "
                          f"w{tuple(w.shape)}")
     if any(t.dtype != torch.float32 for t in (ca, cb, w)):
@@ -177,18 +183,26 @@ def _pc_major_launch(ca, cb, w):
     lib = _build.library("masked_consistency_sum.cu")
     segments = consistency_segments_on(w.device, bsz, p)
     out = torch.empty((bsz, p), dtype=torch.float32, device=w.device)
-    # each point packed as two float4 rows (ca, w) and (cb, finite flag),
-    # and the segments' partial sums (added in segment order by the
-    # kernel's last pass)
-    rows = torch.empty((bsz, p, 8), dtype=torch.float32, device=w.device)
+    # each point packed as two float4 rows (ca, w) and (cb, finite flag)
+    # (at other widths ca and cb zero-padded to whole float4s, then (w,
+    # flag, 0, 0)), and the segments' partial sums (added in segment
+    # order by the kernel's last pass)
+    rows = torch.empty((bsz, p, 8 if c == 3 else 4 * (2 * -(-c // 4) + 1)),
+                       dtype=torch.float32, device=w.device)
     part = (torch.empty((bsz, segments, p), dtype=torch.float32,
                         device=w.device) if segments > 1 else None)
-    code = lib.masked_consistency_sum_f32(
-        ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(),
-        rows.data_ptr(), None if part is None else part.data_ptr(), bsz, p,
-        segments, _build.stream_ptr(w.device))
+    ptrs = (ca.data_ptr(), cb.data_ptr(), w.data_ptr(), out.data_ptr(),
+            rows.data_ptr(), None if part is None else part.data_ptr(), bsz,
+            p)
+    if c == 3:
+        code = lib.masked_consistency_sum_f32(*ptrs, segments,
+                                              _build.stream_ptr(w.device))
+    else:
+        code = lib.masked_consistency_sum_wide_f32(
+            *ptrs, c, segments, _build.stream_ptr(w.device))
     _build.check(code, "masked_consistency_sum")
-    _build.LAUNCHES["masked_consistency_sum"] += 1
+    _build.count_launch("masked_consistency_sum",
+                        None if c == 3 else (f"C{c}",))
     return out
 
 
@@ -223,13 +237,15 @@ def _(ca, cb, w):
 
 
 def consistency_sum_rank_major(coords_cad, dpc, w, v2: int):
-    """coords_cad (B, P, 3) rank-major pair endpoints (P = k * v2), dpc
-    (B, v2, v2) f32 PC point-distance table, w (B, P) f32 row weights.
-    Returns (B, P) f32 sums, at any k."""
+    """coords_cad (B, P, C) rank-major pair endpoints (P = k * v2, any
+    width C >= 1; every caller passes C = 3), dpc (B, v2, v2) f32 PC
+    point-distance table, w (B, P) f32 row weights. Returns (B, P) f32
+    sums, at any k."""
     return _rank_major_op(coords_cad, dpc, w, v2)
 
 
 def masked_consistency_sum(ca, cb, w):
-    """ca, cb (B, P, 3) f32 CAD / PC endpoints of P pairs, w (B, P) f32
-    row weights (0 for pruned rows). Returns (B, P) f32 sums."""
+    """ca, cb (B, P, C) f32 CAD / PC endpoints of P pairs (any width C
+    >= 1; every caller passes C = 3), w (B, P) f32 row weights (0 for
+    pruned rows). Returns (B, P) f32 sums."""
     return _pc_major_op(ca, cb, w)

@@ -2,7 +2,8 @@
 masked cdist wide kernel's route by M and shared memory, the flash
 forward's instance for head dims 33 to 128 (the tensor-core kernel),
 the padding and fold around a stand-in launch, and the tensor-core
-forward's 3xTF32 arithmetic emulated against float64."""
+forward's and the wide backward kernels' 3xTF32 arithmetic emulated
+against float64."""
 import numpy as np
 import pytest
 import torch
@@ -194,3 +195,124 @@ def test_forward_3xtf32_emulation_within_tolerance(dim, n_valid):
     assert err <= tol
     np.testing.assert_allclose(lse, lref, rtol=0,
                                atol=1e-5 * (1 + np.abs(lref).max()))
+
+
+# the 3xTF32 steps of a product over DIM as the kernels order its k index
+# (k-step 2 p + e: dims 16 p + 4 t + 2 e + {0, 1}, t = 0..3)
+def _dim_steps(d):
+    return [np.array([16 * (s // 2) + 4 * t + 2 * (s % 2) + h
+                      for t in range(4) for h in range(2)])
+            for s in range(d // 8)]
+
+
+def _fma(a, b, c):
+    """f32 fma (the product exact in float64, one rounding)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _backward_wide(q, k, v, valid, scale, out, lse, dout):
+    """flash_bwd_dq_wide_kernel's and flash_bwd_dkv_wide_kernel's
+    arithmetic on one frame and head (numpy f32, q / out / dout (N, D), k
+    / v (M, D)): the prep pass (D = dout . out an FMA chain in dim order;
+    L log2 e, or +inf for a row whose dout is all zero or L = -inf); the
+    dq kernel per tile of 32 valid-key-holding keys: s and dout . v in
+    3xTF32 over the permuted k-steps, P = exp2(fma(s, scale log2 e, -L
+    log2 e)) (0 on masked keys), dS = P (dP - D), dq += dS k in 3xTF32
+    over steps of 8 keys; the dkv kernel per tile of 32 queries with a
+    live row likewise for s^T, dv += P^T dout, dk += dS^T q; dq and dk
+    times the scale, masked keys' dk and dv zero."""
+    f32 = np.float32
+    log2e = f32(np.log2(np.e))
+    sl2e = f32(f32(scale) * log2e)
+    n, d = q.shape
+    m = k.shape[0]
+    steps = _dim_steps(d)
+    dd = np.zeros(n, f32)
+    for c in range(d):
+        dd = _fma(dout[:, c], out[:, c], dd)
+    live = (dout != 0).any(1) & (lse != -np.inf)
+    l2 = np.where(live, (lse * log2e).astype(f32), f32(np.inf))
+
+    def probs(s, l2r, mask):
+        x = _fma(s, sl2e, -l2r)
+        return np.where(mask, np.exp2(x.astype(np.float64)).astype(f32), 0)
+
+    dq = np.zeros((n, d), f32)
+    for j0 in range(0, m, 32):
+        kv = valid[j0:j0 + 32]
+        if not kv.any():
+            continue                        # the kernel skips the tile
+        kt, vt = k[j0:j0 + 32], v[j0:j0 + 32]
+        s = _mma3(np.zeros((n, len(kt)), f32), q, kt.T, steps)
+        dp = _mma3(np.zeros((n, len(kt)), f32), dout, vt.T, steps)
+        p = probs(s, l2[:, None], kv[None])
+        ds = (p * (dp - dd[:, None])).astype(f32)
+        dq = _mma3(dq, ds, kt, [np.arange(c, min(c + 8, len(kt)))
+                                for c in range(0, len(kt), 8)])
+    dk, dv = np.zeros((m, d), f32), np.zeros((m, d), f32)
+    for i0 in range(0, n, 32):
+        if not live[i0:i0 + 32].any():
+            continue                        # the kernel skips the tile
+        qt, gt = q[i0:i0 + 32], dout[i0:i0 + 32]
+        st = _mma3(np.zeros((m, len(qt)), f32), k, qt.T, steps)
+        dpt = _mma3(np.zeros((m, len(qt)), f32), v, gt.T, steps)
+        pt = probs(st, l2[None, i0:i0 + 32], True)
+        dst = (pt * (dpt - dd[None, i0:i0 + 32])).astype(f32)
+        chunks = [np.arange(c, min(c + 8, len(qt)))
+                  for c in range(0, len(qt), 8)]
+        dv = _mma3(dv, pt, gt, chunks)
+        dk = _mma3(dk, dst, qt, chunks)
+    return ((dq * f32(scale)).astype(f32),
+            np.where(valid[:, None], dk * f32(scale), 0).astype(f32),
+            np.where(valid[:, None], dv, 0).astype(f32))
+
+
+@pytest.mark.parametrize("dim,case", [(64, "masks"), (128, "masks"),
+                                      (64, "no_keys"), (128, "dead_rows")])
+def test_backward_wide_3xtf32_emulation_within_tolerance(dim, case):
+    """The wide backward kernels' precision (DIM 64 and 128), emulated,
+    against autograd through the float64 plain attention: dq, dk, dv
+    each within 2e-5 of its largest entry (the emulation adds each mma's
+    products exactly; the card's mma rounds inside them, and
+    chip_smoke.py holds the card to 1e-4 of it, FLASH_BWD_F64_TOL); the
+    f32 plain version's own error printed beside it. "masks": random valid keys
+    and a tenth of the queries dead (dout 0); "no_keys": no valid key, so
+    every gradient is zero; "dead_rows": a prefix of live queries, so
+    whole query tiles are skipped (their dq zero). A scale of 1 /
+    sqrt(dim) is a power of two at 64 and not at 128."""
+    rng = np.random.default_rng(dim + len(case))
+    n, m = 72, 90                 # partial tiles of 32 on both sides
+    q, k, v = (rng.normal(size=(s, dim)).astype(np.float32)
+               for s in (n, m, m))
+    valid = rng.random(m) > 0.3
+    q_live = rng.random(n) > 0.1
+    if case == "no_keys":
+        valid[:] = False
+    if case == "dead_rows":
+        q_live = np.arange(n) < 27
+    dout = (rng.normal(size=(n, dim)) * q_live[:, None]).astype(np.float32)
+    scale = dim ** -0.5
+    tq, tk, tv, tg = (torch.as_tensor(x)[None, :, :, None]
+                      for x in (q, k, v, dout))
+    tvalid = torch.as_tensor(valid)[None]
+    out = kattn.flash_cross_attention_plain(tq, tk, tv, tvalid, scale)
+    lse = kattn.flash_cross_attention_lse_plain(tq, tk, tvalid, scale)
+    got = _backward_wide(q, k, v, valid, scale, out[0, :, :, 0].numpy(),
+                         lse[0, :, 0].numpy(), dout)
+    if case == "no_keys":
+        assert not any(x.any() for x in got)
+        return
+    want = kattn.flash_cross_attention_backward(
+        *(x.double() for x in (tq, tk, tv)), tvalid, scale, None, None,
+        tg.double())
+    plain = kattn.flash_cross_attention_backward(tq, tk, tv, tvalid, scale,
+                                                 None, None, tg)
+    for name, a, b, c in zip("qkv", got, want, plain):
+        b, c = b[0, :, :, 0].numpy(), c[0, :, :, 0].numpy()
+        top = np.abs(b).max()
+        err = np.abs(a - b).max() / top
+        print(f"dim {dim} {case} d{name}: emulated {err:.3g}, plain f32 "
+              f"{np.abs(c - b).max() / top:.3g} of max |ref|")
+        assert err <= 2e-5
+    assert not got[0][~q_live].any()            # dead rows: dq = 0
+    assert not got[1][~valid].any() and not got[2][~valid].any()

@@ -229,6 +229,66 @@ def test_consistency_plain_matches_pallas_serve_weights(weights):
                                atol=1e-3)
 
 
+def _width_tolerance(ref, *points):
+    """Tolerance of a consistency sum at endpoint width C against the
+    Pallas kernel: f32 sums in another order (1e-4 of the largest sum),
+    and per column the pair with itself, whose |a|^2 - 2 a.a + |a|^2 both
+    sides round differently: up to sqrt((C + 5) eps 2 |a|^2) in d (the
+    expansion's bound; the sums of C products, then two additions)."""
+    c = points[0].shape[-1]
+    n2 = max(float((x.astype(np.float64) ** 2).sum(-1).max()) for x in points)
+    return 1e-4 * np.abs(ref).max() + 2 * np.sqrt((c + 5) * 2.0 ** -24
+                                                  * 2 * n2)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 30])
+def test_rank_major_any_width_matches_pallas(c):
+    """consistency_sum_rank_major at endpoint width C (the card's
+    any-width instance; on the CPU its plain version) against the Pallas
+    kernel in interpret mode, which pads C to 8; k = 3 ranks, 70 % of the
+    rows live."""
+    rng = np.random.default_rng(30 + c)
+    v2, k = 128, 3
+    ca = (rng.normal(size=(v2 * k, c)) * 2).astype(np.float32)
+    pc = (rng.normal(size=(v2, c)) * 2).astype(np.float32)
+    w = (rng.random(v2 * k) > 0.3).astype(np.float32)
+    dpc = np.linalg.norm(pc[:, None] - pc[None], axis=-1).astype(np.float32)
+    ref = np.asarray(jax_rm(jnp.asarray(ca), jnp.asarray(dpc), jnp.asarray(w),
+                            v2=v2, block_i=64, block_j=128, interpret=True))
+    before = dict(LAUNCHES)
+    out = consistency_sum_rank_major(_t(ca), _t(dpc), _t(w), v2)
+    assert LAUNCHES == before and out.shape == (1, v2 * k)
+    np.testing.assert_allclose(out[0].numpy(), ref, rtol=0,
+                               atol=_width_tolerance(ref, ca))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 30])
+def test_masked_consistency_any_width_matches_pallas(c):
+    """masked_consistency_sum at endpoint width C against the Pallas
+    kernel in interpret mode (which pads C to 8), on two frames: the PC
+    side a rotation of the CAD side moved 10 along the last axis, half
+    of the pairs consistent, 70 % of the rows live, the second frame
+    with a dead half."""
+    rng = np.random.default_rng(40 + c)
+    p = 320
+    rot = np.linalg.qr(rng.normal(size=(c, c)))[0]
+    ca = (rng.normal(size=(2, p, c)) * 3).astype(np.float32)
+    cb = ca @ rot.T + np.eye(c)[-1] * 10
+    cb = np.where(rng.random((2, p, 1)) < 0.5, cb,
+                  cb + rng.normal(size=(2, p, c))).astype(np.float32)
+    w = (rng.random((2, p)) > 0.3).astype(np.float32)
+    w[1, p // 2:] = 0.0
+    before = dict(LAUNCHES)
+    out = masked_consistency_sum(*(torch.as_tensor(x) for x in (ca, cb, w)))
+    assert LAUNCHES == before and out.shape == (2, p)
+    for f in range(2):
+        ref = np.asarray(jax_mcs(jnp.asarray(ca[f]), jnp.asarray(cb[f]),
+                                 jnp.asarray(w[f]), block_i=64, block_j=64,
+                                 interpret=True))
+        np.testing.assert_allclose(out[f].numpy(), ref, rtol=0,
+                                   atol=_width_tolerance(ref, ca[f], cb[f]))
+
+
 def _each_tile_once(tiles, segments):
     walked = sorted(t for s in range(segments)
                     for t in segment_tiles(tiles, segments, s))

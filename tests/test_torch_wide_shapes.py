@@ -406,12 +406,14 @@ CARDS = ((132, 2), (132, 3), (7, 1))
                                      (2, 7, 100000)])
 def test_segment_plans_at_the_wide_instances(dim, bsz, n, m):
     """The forward at DIM 64 and 128 (the tensor-core kernel: 4 warps of
-    16 queries a block) and the backward at 32 and 16 rows a block:
-    every key or query tile in one segment, none past the mask words'
-    reach, two blocks on every SM as far as the tiles allow."""
+    16 queries a block) and the backward's wide kernels at 64 and 128
+    rows a block (4 and 8 warps of 16 rows at the full dim; the queries
+    padded to whole dq blocks): every key or query tile in one segment,
+    none past the mask words' reach, two blocks on every SM as far as the
+    tiles allow."""
     assert kattn.flash_queries_per_block(1, dim) == {64: 64, 128: 64}[dim]
     rows = kattn.flash_backward_rows(dim, 1)
-    assert rows == {64: 32, 128: 16}[dim]
+    assert rows == {64: 64, 128: 128}[dim]
     for sms, per_sm in CARDS:
         tiles = -(-m // kattn.FLASH_KEY_TILE)
         g = kattn.flash_segments(bsz, n, m, 1, sms, per_sm, dim)
@@ -423,7 +425,9 @@ def test_segment_plans_at_the_wide_instances(dim, bsz, n, m):
         assert blocks * g >= min(2 * sms, blocks * tiles)
         gq, gkv = kattn.flash_backward_segments(bsz, n, m, sms, per_sm,
                                                 per_sm, rows)
-        n_pad = -(-n // kattn.FLASH_BWD_ROWS) * kattn.FLASH_BWD_ROWS
+        n_pad = kattn.flash_backward_npad(n, rows)
+        assert n_pad % rows == 0 and n_pad % kattn.FLASH_BWD_TILE == 0
+        assert n <= n_pad < n + rows
         for gg, walked, owned in ((gq, m, n), (gkv, n_pad, m)):
             t = -(-walked // kattn.FLASH_BWD_TILE)
             blk = -(-owned // rows) * bsz
@@ -434,16 +438,10 @@ def test_segment_plans_at_the_wide_instances(dim, bsz, n, m):
 
 
 def test_the_refusals_left_name_their_roadmap_items():
-    """The only shapes the kernels refuse: head dims above 128 (section
-    2, row 1) and consistency endpoints that are not 3-D (rows 2 and 5),
-    which no caller in the JAX package passes. Each refusal comes before
-    any launch."""
-    from pose6d_tpu_torch.ops.kernels import consistency as kcons
+    """The only shape the kernels refuse: head dims above 128 (section 2,
+    row 1), which the JAX kernel cannot take either; the refusal comes
+    before any launch. The consistency kernels take any endpoint width."""
     with pytest.raises(ValueError, match="ROADMAP.md, section 2, row 1"):
         kattn.kernel_instance(1, 200, 1)
-    c4 = torch.zeros(1, 8, 4)
-    with pytest.raises(ValueError, match="ROADMAP.md, section 2, row 2"):
-        kcons._rank_major_launch(c4, torch.zeros(1, 4, 4), torch.ones(1, 8),
-                                 4)
-    with pytest.raises(ValueError, match="ROADMAP.md, section 2, row 5"):
-        kcons._pc_major_launch(c4, c4, torch.ones(1, 8))
+    with pytest.raises(ValueError, match="ROADMAP.md, section 2, row 1"):
+        kattn.instance_dim(129)
