@@ -1,0 +1,7 @@
+"""Median device ms of the filter span per batch (CUDA events around
+the call)."""
+from benchmark.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "filter")

@@ -1,0 +1,1 @@
+"""Plain reference of the benchmark (imports nothing of the program)."""
