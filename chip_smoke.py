@@ -2418,7 +2418,6 @@ def serve(frames, model, dev):
              rot_err_deg=rot_deg(out["R"], f["R_gt"]),
              n_trials=int(out["n_trials"]))
     counts = launched(PATH_KERNELS["serve"], "serve")
-    emit("profile", obj=frames[0]["obj"], **profile_request(pred, frames[0]))
     emit("eigh_sync", gpu=gpu_name_and_limit(), **eigh_sync_probe(dev))
 
     cpu_pred = Predictor(cpu_copy(model), bank, mode="cached", device="cpu")
@@ -2433,92 +2432,6 @@ def serve(frames, model, dev):
         if not (dr <= 1.0 and dt <= 0.01):
             raise AssertionError(f"card and CPU disagree on obj {f['obj']}")
     return counts
-
-
-def stage_ms(model, cad, pc, diam, reps: int = 3, **pose_kw) -> dict:
-    """Each stage of pose_from_operators alone (synchronised between
-    stages), CUDA events, mean over `reps` after one warm-up."""
-    from pose6d_tpu_torch.api import HYP_BLOCK
-    from pose6d_tpu_torch.solvers import (icp_cloud_to_model, ransac_pose,
-                                          spatial_filtering_fmap2pointmap)
-    nf = model.cfg.n_fmap
-    gen = torch.Generator(device=diam.device).manual_seed(0)
-    totals = {"forward": 0.0, "filter": 0.0, "ransac": 0.0, "icp": 0.0}
-
-    def timed(name, fn, keep):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        if keep:
-            totals[name] += start.elapsed_time(end) / reps
-        return out
-
-    with torch.inference_mode():
-        for r in range(reps + 1):
-            out = timed("forward", lambda: model(cad, pc), r > 0)
-            pairs, pvalid = timed("filter", lambda: (
-                spatial_filtering_fmap2pointmap(
-                    out["C"], cad["evecs"][..., :nf], pc["evecs"][..., :nf],
-                    cad["xyz"], pc["xyz"], cad["valid"], pc["valid"],
-                    diam)), r > 0)
-            src = torch.gather(cad["xyz"], 1,
-                               pairs[:, 0, :, None].long().expand(-1, -1, 3))
-            dst = torch.gather(pc["xyz"], 1,
-                               pairs[:, 1, :, None].long().expand(-1, -1, 3))
-            pose = timed("ransac", lambda: ransac_pose(
-                src, dst, pvalid, threshold=0.05 * diam,
-                n_hypotheses=pose_kw["n_hypotheses"], hyp_block=HYP_BLOCK,
-                generator=gen), r > 0)
-            timed("icp", lambda: icp_cloud_to_model(
-                cad["xyz"], cad["valid"], pc["xyz"], pc["valid"], pose["R"],
-                pose["t"], max_corr_dist=0.2 * diam,
-                max_iter=pose_kw["icp_iters"],
-                coarse_stride=pose_kw["coarse_stride"]), r > 0)
-    return totals
-
-
-def profile_request(pred, frame) -> dict:
-    """Device time of 3 B = 1 requests (torch.profiler) over their wall
-    time without the profiler: the device busy share; and the kernels
-    that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def three():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for seed in range(3):
-            pred.predict_with_operators(frame["obj"], frame["pc_ops"],
-                                        seed=seed)
-        torch.cuda.synchronize()
-        return 1e6 * (time.perf_counter() - t0)
-
-    wall_us = three()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        profiled_us = three()
-    # device-side rows only (kernels, memcpy, memset): the host ops that
-    # launched them carry the same time again
-    syncs = {e.key: e.count / 3 for e in prof.key_averages()
-             if e.key in SYNC_CALLS}
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in rows)
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    if device_us == 0:
-        return {"device_busy_share": "not measured (no device time traced)"}
-    return {"wall_ms_per_request": wall_us / 3e3,
-            "profiled_wall_ms_per_request": profiled_us / 3e3,
-            "device_ms_per_request": device_us / 3e3,
-            "device_busy_share": device_us / wall_us,
-            "top_device_ms_per_request": {
-                e.key[:60]: e.self_device_time_total / 3e3 for e in rows[:8]},
-            "device_launches_per_request": sum(e.count for e in rows) / 3,
-            "host_sync_calls_per_request": syncs}
 
 
 # CUDA runtime calls that can make the host wait for the device
@@ -2580,14 +2493,6 @@ def batch_throughput(frames, model, dev, gpu_line: str):
     cad, pc = stack("cad_ops", V_CAD), stack("pc_ops", V_PC)
     diam = torch.tensor([f["diam"] for f in picks], device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for b in (1, BATCH):
-        one = picks[:b]
-        c1, p1 = (stack("cad_ops", V_CAD, one), stack("pc_ops", V_PC, one))
-        kw = ({"n_hypotheses": 131072, "icp_iters": 30, "coarse_stride": 1}
-              if b == 1 else
-              {"n_hypotheses": 4096, "icp_iters": 30, "coarse_stride": 4})
-        emit("stages", batch=b, recipe=kw, gpu=gpu_line,
-             ms=stage_ms(model, c1, p1, diam[:b], **kw))
 
     def run():
         return pose_from_operators(model, cad, pc, diam, n_hypotheses=4096,

@@ -30,8 +30,9 @@ def main(argv=None):
                         "values) in one process; results go to "
                         "<save_results>/<name>/")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the eval loop to "
-                        "DIR/trace.json")
+                   help="write a torch.profiler trace of the eval loop, "
+                        "with the program's spans, to DIR/trace.json and "
+                        "its counters to DIR/counters.json")
     args = p.parse_args(argv)
     # argparse's greedy nargs='+' swallows trailing positional overrides
     # ("--eval-names a b train.batch_size=4"); reroute anything with '='

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.hks import heat_kernel_signature, wave_kernel_signature
 from ..ops.sampling import farthest_point_sample, knn
+from ..utils.profiling import spanned
 from .attention import CrossAttentionRefinementNet
 from .diffusion_net import DiffusionNet
 from .fmap import solve_fmap
@@ -124,6 +125,7 @@ class DPFMNet(nn.Module):
                                       shape["mass"], shape["evals"],
                                       shape["evecs"], shape["valid"], grad)
 
+    @spanned("model")
     def forward(self, cad: dict, pc: dict):
         """cad/pc dicts of padded tensors: xyz (B, V, 3), mass (B, V),
         evals (B, K), evecs (B, V, K), valid (B, V) bool, and with

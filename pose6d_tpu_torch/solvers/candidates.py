@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
 from .fmap2pointmap import spatial_filtering_fmap2pointmap
 from .icp import icp_cloud_to_model
 from .multistart import so3_bank
@@ -83,6 +84,7 @@ def _gather_rows(xyz, idx):
     return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3))
 
 
+@spanned("pose")
 def candidate_select_pose(model, cad, pc, diam, *, n_fmap: int,
                           tta_rotations: int = 0, zoomout_k: int = 0,
                           ransac_hypotheses: int = 4096, icp_iters: int = 30,

@@ -24,6 +24,7 @@ from ..ops.geometry import pairwise_sqdist
 from ..ops.kernels.consistency import (consistency_sum_rank_major,
                                        masked_consistency_sum)
 from ..ops.nn import nearest_valid, topk_valid
+from ..utils.profiling import spanned
 
 K_CANDIDATES = 5                    # default spectral candidates per PC point
 TAUS = (0.3, 0.15, 0.055, 0.065)    # default pruning schedule, x diam(CAD)
@@ -83,6 +84,7 @@ def _prune_schedule(cmean, valid, taus, diam_cad, means=None):
                        keep_loose)
 
 
+@spanned("filter")
 def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
                                     x_valid, y_valid, diam_cad,
                                     k: int = K_CANDIDATES, taus=TAUS,

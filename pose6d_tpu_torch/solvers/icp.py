@@ -11,6 +11,7 @@ import torch
 
 from ..ops.loops import run_while
 from ..ops.nn import nearest_valid
+from ..utils.profiling import span, spanned
 from .kabsch import kabsch_umeyama
 
 
@@ -19,6 +20,7 @@ def _gather_rows(x, idx):
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, 3))
 
 
+@spanned("icp")
 def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
                     max_iter: int = 50, coarse_stride: int = 1,
                     fine_iters: int = 5):
@@ -46,11 +48,13 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
         """n iterations against (tg, tv): a fixed-count loop
         (ops/loops.run_while, a while_loop under torch.export)."""
         def step(i, R, t):
-            j, w, _ = nn_pairs(R, t, tg, tv)
-            ok = (w.sum(-1) >= 3)
-            R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
-            return (i + 1, torch.where(ok[:, None, None], R2, R),
-                    torch.where(ok[:, None], t2, t))
+            with span("icp.match"):
+                j, w, _ = nn_pairs(R, t, tg, tv)
+            with span("icp.update"):
+                ok = (w.sum(-1) >= 3)
+                R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
+                return (i + 1, torch.where(ok[:, None, None], R2, R),
+                        torch.where(ok[:, None], t2, t))
 
         _, R, t = run_while(lambda i, R, t: i < n, step,
                             (torch.zeros((), dtype=torch.int64,
@@ -66,7 +70,8 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
                        tgt_valid[:, ::coarse_stride].contiguous(), n_coarse)
     if n_fine > 0:
         R, t = iterate(R, t, tgt, tgt_valid, n_fine)
-    _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
+    with span("icp.match"):
+        _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
     n_corr = w.sum(-1)
     rmse = torch.sqrt((dmin * w).sum(-1) / torch.clamp(n_corr, min=1.0))
     return {"R": R, "t": t, "rmse": rmse, "n_corr": n_corr}

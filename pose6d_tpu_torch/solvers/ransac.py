@@ -19,6 +19,7 @@ import math
 import torch
 
 from ..ops.loops import run_while
+from ..utils.profiling import count, span, spanned
 from .kabsch import kabsch_umeyama, transform_residuals, triad_rigid
 
 CONFIDENCE = 0.999   # success confidence of the early-exit bound
@@ -31,6 +32,7 @@ def _required_trials(best, n_valid, sample_size: int):
     return math.log1p(-CONFIDENCE) / torch.log1p(-p_good)
 
 
+@spanned("ransac")
 def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
                 hyp_block: int = 1024, generator=None, uniforms=None,
                 sample_size: int = 3):
@@ -106,28 +108,32 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
         return (blk < n_blocks) & active_of(best, done).any()
 
     def step(blk, R, t, best, done):
-        active = active_of(best, done)
-        Rb, tb, cb = run_block(draw(blk))
-        better = active & (cb > best)
-        R = torch.where(better[:, None, None], Rb, R)
-        t = torch.where(better[:, None], tb, t)
-        best = torch.where(active, torch.maximum(best, cb), best)
-        return blk + 1, R, t, best, done + active.to(torch.int64)
+        count("ransac.frame_blocks", bsz)
+        with span("ransac.block"):
+            active = active_of(best, done)
+            Rb, tb, cb = run_block(draw(blk))
+            better = active & (cb > best)
+            R = torch.where(better[:, None, None], Rb, R)
+            t = torch.where(better[:, None], tb, t)
+            best = torch.where(active, torch.maximum(best, cb), best)
+            return blk + 1, R, t, best, done + active.to(torch.int64)
 
     _, R, t, _, done = run_while(more, step, (
         torch.zeros((), dtype=torch.int64, device=dev),
         torch.eye(3, device=dev).expand(bsz, 3, 3).clone(),
         torch.zeros((bsz, 3), device=dev), torch.zeros(bsz, device=dev),
         torch.zeros(bsz, dtype=torch.int64, device=dev)))
+    count("ransac.live_frame_blocks", done)
 
     # local refinement: least-squares refit on the inlier set, iterated
-    for _ in range(REFIT_ROUNDS):
-        r = transform_residuals(R, t, src, dst)
-        w = ((r < threshold[:, None]) & valid).float()
-        R2, t2 = kabsch_umeyama(src, dst, w)
-        ok = w.sum(-1) >= 3           # keep the pose if the set collapsed
-        R = torch.where(ok[:, None, None], R2, R)
-        t = torch.where(ok[:, None], t2, t)
+    with span("ransac.refit"):
+        for _ in range(REFIT_ROUNDS):
+            r = transform_residuals(R, t, src, dst)
+            w = ((r < threshold[:, None]) & valid).float()
+            R2, t2 = kabsch_umeyama(src, dst, w)
+            ok = w.sum(-1) >= 3       # keep the pose if the set collapsed
+            R = torch.where(ok[:, None, None], R2, R)
+            t = torch.where(ok[:, None], t2, t)
     r = transform_residuals(R, t, src, dst)
     inliers = (r < threshold[:, None]) & valid
     n_inl = inliers.sum(-1)

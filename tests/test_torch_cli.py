@@ -155,7 +155,8 @@ def test_parallel_cache_build_equals_serial(workflow, tmp_path):
 
 def test_eval_names_profile_and_rerouted_overrides(workflow, tmp_path):
     """--eval-names with a trailing override (rerouted to the overrides)
-    writes <save_results>/<name>/, and --profile a Chrome trace."""
+    writes <save_results>/<name>/, and --profile a Chrome trace and the
+    program's counters."""
     ov = [o for o in workflow["overrides"]
           if not o.startswith(("save_results", "eval.batch_size"))]
     (ir, _), = cli_eval.main(
@@ -167,6 +168,8 @@ def test_eval_names_profile_and_rerouted_overrides(workflow, tmp_path):
     assert len(list((tmp_path / "res" / "synth_obj1").glob("*.npz"))) == 2
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    counters = json.loads((tmp_path / "trace" / "counters.json").read_text())
+    assert set(counters) == {"counters", "launches"}
 
 
 def test_entry_point_runs_as_a_module(workflow):
@@ -266,17 +269,6 @@ def test_eval_refuses_reference_pt_weights(workflow, tmp_path):
     with pytest.raises(KeyError, match="feature_extractor.first_lin.bias"):
         cli_eval.main(["--config", CONFIG, "--device", "cpu", "--weights",
                        str(bad), *workflow["overrides"]])
-
-
-def test_stage_timer_summary():
-    from pose6d_tpu_torch.utils import StageTimer
-    timer = StageTimer()
-    for _ in range(3):
-        with timer("stage", sync_value=torch.zeros(1)):
-            torch.ones(8).sum()
-    out = timer.summary()
-    assert list(out) == ["stage"] and out["stage"]["n"] == 3
-    assert out["stage"]["mean_ms"] >= 0.0
 
 
 def test_train_without_datasets_raises():
