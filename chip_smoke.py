@@ -63,7 +63,9 @@ forward at head dims 64 and 128 (the tensor-core kernel) and the
 backward there (its wide kernels) also against the float64 attention,
 both consistency kernels at endpoint widths 2, 8 and 30 (their any-width
 instances) and their 3-D sums bit for bit as before (sha256 of seeded
-one-tile inputs), and prints each cdist shape's kernel route and each
+one-tile inputs), RANSAC's scoring kernel bit for bit against its plain
+version at the batch path's block and at B = 1 (and ransac_pose with
+it against the plain scoring, one launch a block), and prints each cdist shape's kernel route and each
 redesigned shape's time over its bound and over the library call.
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
@@ -101,16 +103,18 @@ F32_EPS = 2.0 ** -24
 # before the path runs and read just after)
 PATH_KERNELS = {
     "serve": ("flash_cross_attention", "consistency_sum_rank_major",
-              "masked_topk_cdist", "masked_argmin_cdist"),
+              "masked_topk_cdist", "masked_argmin_cdist",
+              "ransac_inlier_counts"),
     "online": ("flash_cross_attention", "consistency_sum_rank_major",
-               "masked_topk_cdist", "masked_argmin_cdist"),
+               "masked_topk_cdist", "masked_argmin_cdist",
+               "ransac_inlier_counts"),
     "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
     "train": ("flash_cross_attention", "flash_cross_attention_backward",
               "masked_argmin_cdist"),
     "eval": ("flash_cross_attention", "consistency_sum_rank_major",
              "masked_topk_cdist", "masked_argmin_cdist",
              "masked_consistency_sum"),
-    "pose_stage": ("masked_argmin_cdist",),
+    "pose_stage": ("masked_argmin_cdist", "ransac_inlier_counts"),
     "variants": ("flash_cross_attention", "flash_cross_attention_backward"),
     "variant_serve": ("flash_cross_attention", "consistency_sum_rank_major",
                       "masked_topk_cdist", "masked_argmin_cdist"),
@@ -123,7 +127,8 @@ PATH_KERNELS = {
                         "consistency_sum_rank_major", "masked_argmin_cdist"),
     # serving_export: the exported artifact's requests (the online frame)
     "export": ("flash_cross_attention", "consistency_sum_rank_major",
-               "masked_topk_cdist", "masked_argmin_cdist"),
+               "masked_topk_cdist", "masked_argmin_cdist",
+               "ransac_inlier_counts"),
     # data_parallel: the ranks' train (the IR probe on) and eval jobs
     "data_parallel": ("flash_cross_attention",
                       "flash_cross_attention_backward",
@@ -239,6 +244,9 @@ def check_kernels(dev) -> dict:
     rows["flash_cross_attention"]["instances"] = flash_instances(dev, g)
     rows["flash_cross_attention_backward"]["instances"] = \
         flash_backward_instances(dev, g)
+    # its own generator: the checks before it keep their inputs
+    rows["ransac_inlier_counts"] = check_ransac_counts(
+        dev, torch.Generator(device=dev).manual_seed(20))
     for name, row in rows.items():
         emit("kernel_check", name=name, **row)
     return rows
@@ -1417,6 +1425,161 @@ def check_masked_consistency(dev, g) -> dict:
                "at B = 1",
         timing="ms: device time per call (graph replay); call_ms: "
                "back-to-back calls from the host")
+
+
+# RANSAC's scoring: the batch path's block (B = 64 frames, 512
+# hypotheses, 10240 pairs, ~29 % of the frames still drawing) and a
+# one-frame request's block; (B, H, N, frames live)
+RANSAC_SHAPES = {"b64": (64, 512, 10240, 19), "b1": (1, 512, 10240, 1)}
+RANSAC_THRESHOLD = 0.5
+
+
+def ransac_frames(dev, g, bsz: int, n: int):
+    """Frames of n pairs under a random pose: src within +-10, dst the
+    posed src + noise of 0.2, a share of the pairs moved far off (0.5 to
+    0.97 by frame, so that some frames exit after one block of 512 and
+    others draw all 8 of 4096), the first 60-95 % of the pairs valid (as
+    ransac_pose compacts them). Returns src, dst, valid, the poses R, t."""
+    src = torch.rand((bsz, n, 3), device=dev, generator=g) * 20 - 10
+    q, r = torch.linalg.qr(torch.randn((bsz, 3, 3), device=dev, generator=g))
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None]
+    R = q * torch.sign(torch.linalg.det(q))[:, None, None]
+    t = torch.randn((bsz, 3), device=dev, generator=g) * 20
+    dst = src @ R.transpose(1, 2) + t[:, None] + 0.2 * torch.randn(
+        (bsz, n, 3), device=dev, generator=g)
+    share = 0.5 + 0.47 * torch.rand((bsz, 1), device=dev, generator=g)
+    off = torch.rand((bsz, n), device=dev, generator=g) < share
+    dst = torch.where(off[..., None], dst + 5 * torch.randn(
+        (bsz, n, 3), device=dev, generator=g), dst)
+    n_valid = (n * (0.6 + 0.35 * torch.rand(bsz, device=dev, generator=g))
+               ).long()
+    valid = torch.arange(n, device=dev)[None] < n_valid[:, None]
+    return src, dst, valid, R, t
+
+
+def ransac_hypotheses(dev, g, R, t, h: int):
+    """h hypotheses per frame near its pose: rotated by Rodrigues' formula
+    about random axes by ~0.02 rad, shifted by ~0.2, so that many pairs
+    lie near the threshold."""
+    bsz = R.shape[0]
+    w = torch.randn((bsz, h, 3), device=dev, generator=g) * 0.02
+    a = torch.linalg.vector_norm(w, dim=-1, keepdim=True).clamp_min(1e-12)
+    x, y, z = (w / a).unbind(-1)
+    zero = torch.zeros_like(x)
+    k = torch.stack([torch.stack([zero, -z, y], -1),
+                     torch.stack([z, zero, -x], -1),
+                     torch.stack([-y, x, zero], -1)], -2)
+    a = a[..., None]
+    eye = torch.eye(3, device=dev)
+    dr = eye + torch.sin(a) * k + (1 - torch.cos(a)) * (k @ k)
+    Rs = (dr @ R[:, None]).contiguous()
+    ts = (t[:, None] + 0.2 * torch.randn((bsz, h, 3), device=dev,
+                                         generator=g)).contiguous()
+    return Rs, ts
+
+
+def check_ransac_counts(dev, g) -> dict:
+    """RANSAC's scoring kernel at RANSAC_SHAPES: counts equal to the plain
+    version's on the card bit for bit (two launches equal, inactive rows
+    0), the rows where float64 residuals would count otherwise (what an
+    order or rounding change could move), device time per call (graph
+    replay) against the bound and the plain version; then ransac_pose at
+    the batch shape (4096 hypotheses in blocks of 512, shared draws) with
+    the kernel and with the plain version in its place: bit for bit, and
+    one launch a block."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.ops.kernels.ransac import ransac_segments_on
+    from pose6d_tpu_torch.solvers import ransac as ransac_mod
+    rows = {}
+    for label, (bsz, h, n, live) in RANSAC_SHAPES.items():
+        src, dst, valid, R, t = ransac_frames(dev, g, bsz, n)
+        Rs, ts = ransac_hypotheses(dev, g, R, t, h)
+        vmask = valid.float()
+        thr2 = torch.full((bsz,), RANSAC_THRESHOLD ** 2, device=dev)
+        active = torch.zeros(bsz, dtype=torch.bool, device=dev)
+        active[torch.randperm(bsz, device=dev, generator=g)[:live]] = True
+        args = (Rs, ts, src, dst, vmask, thr2, active)
+        got = K.ransac_inlier_counts(*args)
+        if not torch.equal(got, K.ransac_inlier_counts(*args)):
+            raise AssertionError(f"ransac_inlier_counts {label}: launches "
+                                 "differ")
+        plain = K.ransac_inlier_counts_plain(*args)
+        if not torch.equal(got, plain):
+            raise AssertionError(
+                f"ransac_inlier_counts {label}: {int((got != plain).sum())} "
+                "counts differ from the plain version")
+        if got[~active].any():
+            raise AssertionError(f"ransac_inlier_counts {label}: an "
+                                 "inactive row is not 0")
+        f64 = K.ransac_inlier_counts_plain(
+            *(x.double() for x in args[:6]), active)
+        all_live = torch.ones_like(active)
+        n_live = float(vmask[active].sum().item())
+        b_ms, by = bound(4 * (live * n * 7 + bsz * h * 13),
+                         22 * n_live * h)
+        rows[label] = dict(
+            max_abs_err=(got - plain).abs().max().item(),
+            rows_float64_differs=int((f64.float() != plain).sum()),
+            mean_count=got[active].mean().item(),
+            segments=ransac_segments_on(dev, bsz, h, n),
+            ms=graph_ms(lambda: K.ransac_inlier_counts(*args)),
+            plain_ms=cuda_ms(lambda: K.ransac_inlier_counts_plain(*args), 2),
+            bound_ms=b_ms, bound_by=by,
+            ms_all_live=graph_ms(lambda: K.ransac_inlier_counts(
+                *args[:6], all_live)),
+            bound_all_live_ms=bound(4 * (bsz * n * 7 + bsz * h * 13),
+                                    22 * float(vmask.sum().item()) * h)[0])
+        del plain, f64
+    # ransac_pose at the batch shape, the kernel against the plain version
+    bsz, h, n, _ = RANSAC_SHAPES["b64"]
+    src, dst, valid, _, _ = ransac_frames(dev, g, bsz, n)
+    n_hyp = 8 * h
+    u = torch.rand((bsz, n_hyp // h, h, 3), device=dev, generator=g)
+
+    def pose():
+        return ransac_mod.ransac_pose(src, dst, valid, RANSAC_THRESHOLD,
+                                      n_hypotheses=n_hyp, hyp_block=h,
+                                      uniforms=u)
+    before = K.LAUNCHES["ransac_inlier_counts"]
+    got = pose()
+    launches = K.LAUNCHES["ransac_inlier_counts"] - before
+    blocks = int(got["n_trials"].max()) // h
+    if launches != blocks:
+        raise AssertionError(f"ransac_pose: {launches} launches for "
+                             f"{blocks} blocks")
+    kernel_op = ransac_mod.ransac_inlier_counts
+    ransac_mod.ransac_inlier_counts = K.ransac_inlier_counts_plain
+    try:
+        want = pose()
+    finally:
+        ransac_mod.ransac_inlier_counts = kernel_op
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"ransac_pose with the kernel differs from the "
+                             f"plain scoring in {differ}")
+    trials = got["n_trials"]
+    rows["pose_b64"] = dict(
+        blocks=blocks, launches=launches,
+        frames_by_blocks={str(b): int((trials == b * h).sum())
+                          for b in range(1, blocks + 1)},
+        live_share=float(trials.sum()) / (bsz * blocks * h))
+    for label, res in rows.items():
+        emit("kernel_case", name="ransac_inlier_counts", case=label, **res)
+    main = rows["b64"]
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/ransac_inlier_counts.cu",
+        replaces="none (the JAX package scores in plain XLA, "
+                 "pose6d_tpu/solvers/ransac.py)",
+        tol="bit for bit against the plain version",
+        **{k: main[k] for k in ("max_abs_err", "rows_float64_differs",
+                                "segments", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "ms_all_live",
+                                "bound_all_live_ms")},
+        library_ms=None, b1=rows["b1"], pose_b64=rows["pose_b64"],
+        shapes="Rs (64,512,3,3), src, dst (64,10240,3), 19 of 64 frames "
+               "live; b1: B = 1, its frame live",
+        timing="ms: device time per call (graph replay); bound: 22 "
+               "operations per live (hypothesis, valid pair) at 67 TFLOP/s")
 
 
 # endpoint widths other than 3 (both consistency kernels' any-width

@@ -14,6 +14,7 @@ from .consistency import (consistency_sum_rank_major,
                           consistency_sum_rank_major_plain,
                           masked_consistency_sum,
                           masked_consistency_sum_plain)
+from .ransac import ransac_inlier_counts, ransac_inlier_counts_plain
 
 __all__ = ["LAUNCHES", "build_all", "reset_launches",
            "flash_cross_attention", "flash_cross_attention_plain",
@@ -22,4 +23,5 @@ __all__ = ["LAUNCHES", "build_all", "reset_launches",
            "masked_argmin_cdist", "masked_argmin_cdist_plain",
            "masked_topk_cdist", "masked_topk_cdist_plain",
            "consistency_sum_rank_major", "consistency_sum_rank_major_plain",
-           "masked_consistency_sum", "masked_consistency_sum_plain"]
+           "masked_consistency_sum", "masked_consistency_sum_plain",
+           "ransac_inlier_counts", "ransac_inlier_counts_plain"]

@@ -2,7 +2,9 @@
 
 Blocks of hypotheses are drawn from each frame's compacted valid table
 (3-point triads solved in closed form by default; any other sample size
-by a weighted Kabsch solve) and scored together; a frame stops drawing
+by a weighted Kabsch solve) and scored together by one kernel op
+(ops/kernels/ransac.py, which on the card keeps the residuals in
+registers and skips the frames that have exited); a frame stops drawing
 once its best hypothesis's inlier ratio eps meets the trial bound
 T(eps) = log(1 - confidence) / log(1 - eps^s), s the sample size, or
 when the budget is spent. Frames of a batch exit independently: a frame that has met its
@@ -18,6 +20,7 @@ import math
 
 import torch
 
+from ..ops.kernels import ransac_inlier_counts
 from ..ops.loops import run_while
 from ..utils.profiling import count, span, spanned
 from .kabsch import kabsch_umeyama, transform_residuals, triad_rigid
@@ -50,43 +53,39 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
     """
     src = src.float()
     dst = dst.float()
-    bsz, n = valid.shape
+    bsz = valid.shape[0]
     dev = src.device
     hyp_block = min(hyp_block, n_hypotheses)
     n_blocks = -(-n_hypotheses // hyp_block)
     threshold = torch.as_tensor(threshold, dtype=torch.float32,
                                 device=dev).expand(bsz)
-    thr2 = (threshold * threshold)[:, None, None]
+    thr2 = threshold * threshold
     vmask = valid.float()
     n_valid = torch.clamp(vmask.sum(-1), min=1.0)
-    # valid indices compacted to the front, order kept (stable sort)
+    # the pairs with the valid ones compacted to the front, order kept
+    # (stable sort): the draws index this prefix, and the scoring kernel
+    # skips the tiles of the invalid tail (a count does not depend on the
+    # pairs' order)
     valid_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    idx3 = valid_idx[..., None].expand(-1, -1, 3)
+    src_c, dst_c = torch.gather(src, 1, idx3), torch.gather(dst, 1, idx3)
+    vmask_c = torch.gather(vmask, 1, valid_idx)
     n_valid_i = valid.sum(-1).to(torch.int32)
     max_slot = torch.clamp(n_valid_i - 1, min=0)[:, None, None]
     rows = torch.arange(bsz, device=dev)[:, None, None]
 
-    def run_block(u):
+    def run_block(u, active):
         """Best hypothesis of one block per frame; u (B, hyp_block,
-        sample_size)."""
+        sample_size); the frames not `active` are not scored."""
         slots = (u * n_valid_i.float()[:, None, None]).to(torch.int32)
         slots = torch.minimum(slots, max_slot).long()
-        samples = torch.gather(valid_idx, 1, slots.reshape(bsz, -1))
-        samples = samples.reshape(bsz, hyp_block, sample_size)
         if sample_size == 3:
-            Rs, ts = triad_rigid(src[rows, samples], dst[rows, samples])
+            Rs, ts = triad_rigid(src_c[rows, slots], dst_c[rows, slots])
         else:
-            Rs, ts = kabsch_umeyama(src[rows, samples], dst[rows, samples],
-                                    torch.ones(samples.shape, device=dev))
-        # residual planes with the 3-wide contraction unrolled
-        d2 = torch.zeros((bsz, hyp_block, n), dtype=torch.float32,
-                         device=dev)
-        for i in range(3):
-            pred_i = (Rs[:, :, i, 0, None] * src[:, None, :, 0]
-                      + Rs[:, :, i, 1, None] * src[:, None, :, 1]
-                      + Rs[:, :, i, 2, None] * src[:, None, :, 2]
-                      + ts[:, :, i, None])
-            d2 = d2 + (pred_i - dst[:, None, :, i]) ** 2
-        counts = ((d2 < thr2) * vmask[:, None]).sum(-1)
+            Rs, ts = kabsch_umeyama(src_c[rows, slots], dst_c[rows, slots],
+                                    torch.ones(slots.shape, device=dev))
+        counts = ransac_inlier_counts(Rs, ts, src_c, dst_c, vmask_c, thr2,
+                                      active)
         b = torch.argmax(counts, dim=-1)
         ar = torch.arange(bsz, device=dev)
         return Rs[ar, b], ts[ar, b], counts[ar, b]
@@ -111,7 +110,7 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
         count("ransac.frame_blocks", bsz)
         with span("ransac.block"):
             active = active_of(best, done)
-            Rb, tb, cb = run_block(draw(blk))
+            Rb, tb, cb = run_block(draw(blk), active)
             better = active & (cb > best)
             R = torch.where(better[:, None, None], Rb, R)
             t = torch.where(better[:, None], tb, t)

@@ -98,6 +98,13 @@ def test_ransac_exported_equals_eager_and_exits_early():
 
     program = _export(fn, *args)
     assert _while_loops(program) == 1
+    # the scoring is one op node, inside the loop's step
+    top = program.graph_module
+    op = torch.ops.pose6d_tpu_torch.ransac_inlier_counts.default
+    nodes = {name: sum(1 for n in m.graph.nodes if n.target == op)
+             for name, m in top.named_modules()
+             if isinstance(m, torch.fx.GraphModule)}
+    assert sum(nodes.values()) == 1 and nodes[""] == 0, nodes
     want = fn(*args)
     got = program.module()(*args)
     _assert_bit_equal(got, want)
@@ -150,6 +157,8 @@ def _op_cases():
     out, lse = kattn.flash_cross_attention_plain(q, k, v, kv, 0.25), \
         kattn.flash_cross_attention_lse_plain(q, k, kv, 0.25)
     ca, cb, w = rand(2, 40, 3), rand(2, 40, 3), torch.rand(2, 40, generator=g)
+    rs, ts = torch.linalg.qr(rand(2, 9, 3, 3))[0], rand(2, 9, 3)
+    vmask = (torch.rand(2, 40, generator=g) > 0.2).float()
     dpc = torch.sqrt(torch.cdist(cb[:, :8], cb[:, :8]) ** 2)
     ops = torch.ops.pose6d_tpu_torch
     return {
@@ -159,6 +168,10 @@ def _op_cases():
         "consistency_sum_rank_major": (ops.consistency_sum_rank_major,
                                        (ca, dpc, w, 8)),
         "masked_consistency_sum": (ops.masked_consistency_sum, (ca, cb, w)),
+        "ransac_inlier_counts": (ops.ransac_inlier_counts,
+                                 (rs, ts, ca, cb, vmask,
+                                  torch.tensor([4.0, 9.0]),
+                                  torch.tensor([True, False]))),
         "flash_cross_attention": (ops.flash_cross_attention,
                                   (q, k, v, kv, 0.25, False)),
         "flash_cross_attention_lse": (ops.flash_cross_attention,
@@ -180,7 +193,8 @@ def test_every_kernel_op_has_cpu_cuda_and_fake_implementations():
     from torch._library.custom_ops import OPDEFS
     names = ("masked_topk_cdist", "masked_argmin_cdist",
              "consistency_sum_rank_major", "masked_consistency_sum",
-             "flash_cross_attention", "flash_cross_attention_backward")
+             "flash_cross_attention", "flash_cross_attention_backward",
+             "ransac_inlier_counts")
     for name in names:
         opdef = OPDEFS[f"pose6d_tpu_torch::{name}"]
         assert set(opdef._backend_fns) == {"cpu", "cuda"}, name

@@ -29,6 +29,8 @@ from pose6d_tpu_torch.ops.kernels.attention import (
 from pose6d_tpu_torch.ops.kernels.consistency import (
     PCM_COL_TILE, PCM_ROW_TILE, RM_COL_TILE, RM_ROW_TILE,
     consistency_segments, rank_major_segments)
+from pose6d_tpu_torch.ops.kernels.ransac import (
+    RANSAC_HYP_TILE, RANSAC_PAIR_TILE, ransac_inlier_counts, ransac_segments)
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
                                           flash_cross_attention,
                                           flash_cross_attention_backward,
@@ -726,3 +728,102 @@ def test_masked_consistency_plain_matches_pallas_pc_major(live):
         # points); sums of <= 320 terms of size ~5 in another order
         np.testing.assert_allclose(out[f].numpy(), np.asarray(ref),
                                    rtol=1e-4, atol=5e-2)
+
+
+def _inline_ransac_scores(Rs, ts, src, dst, vmask, thr2):
+    """RANSAC's scoring as solvers/ransac.py ran it inline before the
+    kernel op: (B, H, N) residual planes, every frame scored."""
+    d2 = torch.zeros((*Rs.shape[:2], src.shape[1]), dtype=torch.float32)
+    for i in range(3):
+        pred_i = (Rs[:, :, i, 0, None] * src[:, None, :, 0]
+                  + Rs[:, :, i, 1, None] * src[:, None, :, 1]
+                  + Rs[:, :, i, 2, None] * src[:, None, :, 2]
+                  + ts[:, :, i, None])
+        d2 = d2 + (pred_i - dst[:, None, :, i]) ** 2
+    return ((d2 < thr2[:, None, None]) * vmask[:, None]).sum(-1)
+
+
+def _ransac_hypotheses(seed, bsz, h, n, spread):
+    """Frames of n pairs under a known pose (half of them moved far off)
+    and h hypotheses near that pose, rotated by ~`spread` rad and shifted
+    by ~`spread` x 10 (normal draws): residuals of every size around the
+    threshold 0.5, so that many pairs lie within rounding of it."""
+    rng = np.random.default_rng(seed)
+    src = (rng.normal(size=(bsz, n, 3)) * 10).astype(np.float32)
+    Rs, ts, dst = [], [], np.empty_like(src)
+    for f in range(bsz):
+        q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        q *= np.sign(np.linalg.det(q))
+        t = rng.normal(size=3) * 20
+        dst[f] = src[f] @ q.T + t + rng.normal(size=(n, 3)) * 0.2
+        off = rng.random(n) < 0.5
+        dst[f, off] += rng.normal(size=(off.sum(), 3)) * 5
+        for _ in range(h):
+            w = rng.normal(size=3) * spread
+            a = np.linalg.norm(w)
+            k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                          [-w[1], w[0], 0]]) / max(a, 1e-12)
+            dr = np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+            Rs.append(dr @ q)
+            ts.append(t + rng.normal(size=3) * spread * 10)
+    Rs = np.asarray(Rs, np.float32).reshape(bsz, h, 3, 3)
+    ts = np.asarray(ts, np.float32).reshape(bsz, h, 3)
+    vmask = (rng.random((bsz, n)) < 0.8).astype(np.float32)
+    thr2 = np.full(bsz, 0.25, np.float32)
+    return [torch.as_tensor(x) for x in (Rs, ts, src, dst.astype(np.float32),
+                                         vmask, thr2)]
+
+
+@pytest.mark.parametrize("bsz,h,n,live", [
+    (3, 64, 300, (True, False, True)),     # H divides neither N nor a tile
+    (2, 7, 50, (False, True)),
+    (1, 130, 257, (True,)),                # past one block and one tile
+    (4, 16, 1, (True, True, False, True))])
+def test_ransac_counts_plain_equals_inline_scoring(bsz, h, n, live):
+    """The op on CPU tensors (its plain version) gives the inline
+    scoring's counts on active frames, bit for bit, and 0 on the rows of
+    inactive ones, without a launch."""
+    Rs, ts, src, dst, vmask, thr2 = _ransac_hypotheses(bsz, bsz, h, n, 0.02)
+    active = torch.tensor(live)
+    before = dict(LAUNCHES)
+    got = ransac_inlier_counts(Rs, ts, src, dst, vmask, thr2, active)
+    assert LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == (bsz, h)
+    want = _inline_ransac_scores(Rs, ts, src, dst, vmask, thr2)
+    assert torch.equal(got[active], want[active])
+    assert not got[~active].any()
+    assert want[active].max() > 0 and want.min() < n
+
+
+def test_ransac_counts_match_float64_off_the_threshold():
+    """Away from the threshold rounding cannot move a pair: there the
+    counts are float64's."""
+    Rs, ts, src, dst, vmask, thr2 = _ransac_hypotheses(5, 2, 32, 400, 0.01)
+    got = ransac_inlier_counts(Rs, ts, src, dst, vmask, thr2,
+                               torch.tensor([True, True]))
+    e = (np.einsum("bhij,bnj->bhni", Rs.double().numpy(),
+                   src.double().numpy()) + ts.double().numpy()[:, :, None]
+         - dst.double().numpy()[:, None])
+    d2 = (e * e).sum(-1)
+    near = np.abs(d2 - 0.25) < 1e-4
+    counts = ((d2 < 0.25) & (vmask.numpy()[:, None] > 0)).sum(-1)
+    clear = ~(near & (vmask.numpy()[:, None] > 0)).any(-1)
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got.numpy()[clear], counts[clear])
+
+
+@pytest.mark.parametrize("bsz,h,n", [(64, 512, 10240), (1, 512, 10240),
+                                     (1, 1024, 10240), (16, 1024, 2000),
+                                     (2, 7, 50), (3, 256, 300)])
+def test_ransac_segments_cover_every_pair_tile(bsz, h, n):
+    tiles = -(-n // RANSAC_PAIR_TILE)
+    blocks = -(-h // RANSAC_HYP_TILE) * bsz
+    for sms, per_sm in CARDS + [(132, 16)]:
+        s = ransac_segments(bsz, h, n, sms, per_sm)
+        assert 1 <= s <= tiles
+        assert _each_tile_once(tiles, s)
+        # two blocks on every SM, as far as the pair tiles allow
+        assert blocks * s >= min(2 * sms, blocks * tiles)
+    if (bsz, h, n) == (1, 512, 10240):    # a one-frame request's block
+        assert ransac_segments(1, 512, 10240, 132, 16) == tiles
+

@@ -11,6 +11,7 @@ from pose6d_tpu import solvers as jax_solvers
 from pose6d_tpu.solvers import kabsch as jax_kabsch
 from pose6d_tpu_torch import solvers
 from pose6d_tpu_torch.solvers import kabsch
+from pose6d_tpu_torch.solvers import ransac as ransac_mod
 
 torch.set_num_threads(2)
 
@@ -120,13 +121,15 @@ def _jax_uniforms(key, n_blocks, hyp_block):
     return np.stack(out)
 
 
-def test_ransac_matches_jax_with_shared_draws():
+def _shared_draw_case():
+    """Two frames of 300 correspondences, 60 % and 25 % inliers, so they
+    exit after different block counts (the low one after several blocks);
+    2048 hypotheses in blocks of 64. Returns (src, dst, valid) numpy
+    stacks and each frame's JAX key."""
     rng = np.random.default_rng(3)
-    n, n_hyp, hyp_block = 300, 2048, 64
-    srcs, dsts, valids, us, refs = [], [], [], [], []
-    # two frames: 60 % and 25 % inliers, so they exit after different
-    # block counts (the low one after several blocks)
-    for f, ratio in enumerate((0.6, 0.25)):
+    n = 300
+    srcs, dsts, valids = [], [], []
+    for ratio in (0.6, 0.25):
         src = (rng.normal(size=(n, 3)) * 5).astype(np.float32)
         R_gt = _rotation(rng)
         dst = src @ R_gt.T + np.array([3.0, 1.0, 40.0], np.float32)
@@ -134,15 +137,20 @@ def test_ransac_matches_jax_with_shared_draws():
         dst[out] = rng.normal(size=(out.sum(), 3)) * 5 + 40
         dst = dst.astype(np.float32)
         valid = np.arange(n) < 280
-        key = jax.random.PRNGKey(f)
-        ref = jax_solvers.ransac_pose(
-            key, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid),
-            threshold=0.5, n_hypotheses=n_hyp, hyp_block=hyp_block)
         srcs.append(src); dsts.append(dst); valids.append(valid)
-        us.append(_jax_uniforms(key, n_hyp // hyp_block, hyp_block))
-        refs.append(ref)
-    res = solvers.ransac_pose(_t(np.stack(srcs)), _t(np.stack(dsts)),
-                              _t(np.stack(valids)), threshold=0.5,
+    keys = [jax.random.PRNGKey(f) for f in range(2)]
+    return np.stack(srcs), np.stack(dsts), np.stack(valids), keys
+
+
+def test_ransac_matches_jax_with_shared_draws():
+    n_hyp, hyp_block = 2048, 64
+    src, dst, valid, keys = _shared_draw_case()
+    refs = [jax_solvers.ransac_pose(
+        key, jnp.asarray(src[f]), jnp.asarray(dst[f]),
+        jnp.asarray(valid[f]), threshold=0.5, n_hypotheses=n_hyp,
+        hyp_block=hyp_block) for f, key in enumerate(keys)]
+    us = [_jax_uniforms(key, n_hyp // hyp_block, hyp_block) for key in keys]
+    res = solvers.ransac_pose(_t(src), _t(dst), _t(valid), threshold=0.5,
                               n_hypotheses=n_hyp, hyp_block=hyp_block,
                               uniforms=_t(np.stack(us)))
     trials = [int(r["n_trials"]) for r in refs]
@@ -155,6 +163,109 @@ def test_ransac_matches_jax_with_shared_draws():
                                    atol=1e-4)
         np.testing.assert_allclose(res["t"][f].numpy(), np.asarray(ref["t"]),
                                    atol=1e-4 * 50)   # 1e-4 of |t| ~ 40
+
+
+def _ransac_pose_inline(src, dst, valid, threshold, n_hypotheses, hyp_block,
+                        uniforms, sample_size):
+    """solvers.ransac_pose as it ran before its scoring became a kernel
+    op, as a plain loop: the draws indexed through the valid indices,
+    every frame scored on (B, H, N) residual planes in every block."""
+    bsz, n = valid.shape
+    n_blocks = n_hypotheses // hyp_block
+    threshold = torch.full((bsz,), threshold)
+    thr2 = (threshold * threshold)[:, None, None]
+    vmask = valid.float()
+    n_valid = torch.clamp(vmask.sum(-1), min=1.0)
+    valid_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    n_valid_i = valid.sum(-1).to(torch.int32)
+    max_slot = torch.clamp(n_valid_i - 1, min=0)[:, None, None]
+    rows = torch.arange(bsz)[:, None, None]
+    ar = torch.arange(bsz)
+    R = torch.eye(3).expand(bsz, 3, 3).clone()
+    t = torch.zeros((bsz, 3))
+    best = torch.zeros(bsz)
+    done = torch.zeros(bsz, dtype=torch.int64)
+    for blk in range(n_blocks):
+        active = (done < n_blocks) & (done * hyp_block < ransac_mod.
+                                      _required_trials(best, n_valid,
+                                                       sample_size))
+        if not active.any():
+            break
+        slots = (uniforms[:, blk] * n_valid_i.float()[:, None, None]).to(
+            torch.int32)
+        slots = torch.minimum(slots, max_slot).long()
+        samples = torch.gather(valid_idx, 1, slots.reshape(bsz, -1))
+        samples = samples.reshape(bsz, hyp_block, sample_size)
+        if sample_size == 3:
+            Rs, ts = kabsch.triad_rigid(src[rows, samples],
+                                        dst[rows, samples])
+        else:
+            Rs, ts = kabsch.kabsch_umeyama(src[rows, samples],
+                                           dst[rows, samples],
+                                           torch.ones(samples.shape))
+        d2 = torch.zeros((bsz, hyp_block, n), dtype=torch.float32)
+        for i in range(3):
+            pred_i = (Rs[:, :, i, 0, None] * src[:, None, :, 0]
+                      + Rs[:, :, i, 1, None] * src[:, None, :, 1]
+                      + Rs[:, :, i, 2, None] * src[:, None, :, 2]
+                      + ts[:, :, i, None])
+            d2 = d2 + (pred_i - dst[:, None, :, i]) ** 2
+        counts = ((d2 < thr2) * vmask[:, None]).sum(-1)
+        b = torch.argmax(counts, dim=-1)
+        Rb, tb, cb = Rs[ar, b], ts[ar, b], counts[ar, b]
+        better = active & (cb > best)
+        R = torch.where(better[:, None, None], Rb, R)
+        t = torch.where(better[:, None], tb, t)
+        best = torch.where(active, torch.maximum(best, cb), best)
+        done = done + active.to(torch.int64)
+    for _ in range(ransac_mod.REFIT_ROUNDS):
+        r = kabsch.transform_residuals(R, t, src, dst)
+        w = ((r < threshold[:, None]) & valid).float()
+        R2, t2 = kabsch.kabsch_umeyama(src, dst, w)
+        ok = w.sum(-1) >= 3
+        R = torch.where(ok[:, None, None], R2, R)
+        t = torch.where(ok[:, None], t2, t)
+    r = kabsch.transform_residuals(R, t, src, dst)
+    inliers = (r < threshold[:, None]) & valid
+    n_inl = inliers.sum(-1)
+    return {"R": R, "t": t, "inliers": inliers, "n_inliers": n_inl,
+            "n_trials": done * hyp_block, "ok": n_inl >= 3}
+
+
+@pytest.mark.parametrize("sample_size,scattered", [(3, False), (4, False),
+                                                   (3, True)])
+def test_ransac_pose_bit_identical_to_inline_scoring(sample_size, scattered,
+                                                    monkeypatch):
+    """The shared-draw case (JAX's draws; sample size 4 on numpy draws;
+    scattered: its pairs permuted, so that the valid ones are no prefix)
+    gives ransac_pose's results of before the kernel op, bit for bit, with
+    its refits and without them (the winning hypotheses themselves): the
+    compacted pairs, the op's counts and the skipped exited frames move
+    nothing."""
+    n_hyp, hyp_block = 2048, 64
+    src, dst, valid, keys = _shared_draw_case()
+    if scattered:
+        perm = np.random.default_rng(4).permutation(valid.shape[1])
+        src, dst, valid = src[:, perm], dst[:, perm], valid[:, perm]
+    if sample_size == 3:
+        u = np.stack([_jax_uniforms(key, n_hyp // hyp_block, hyp_block)
+                      for key in keys])
+    else:
+        u = np.random.default_rng(9).random(
+            (2, n_hyp // hyp_block, hyp_block, 4)).astype(np.float32)
+    args = (_t(src), _t(dst), _t(valid), 0.5, n_hyp, hyp_block, _t(u),
+            sample_size)
+    for refits in (ransac_mod.REFIT_ROUNDS, 0):
+        monkeypatch.setattr(ransac_mod, "REFIT_ROUNDS", refits)
+        got = solvers.ransac_pose(*args[:4], n_hypotheses=n_hyp,
+                                  hyp_block=hyp_block, uniforms=args[6],
+                                  sample_size=sample_size)
+        want = _ransac_pose_inline(*args)
+        trials = want["n_trials"].tolist()
+        assert trials[0] < trials[1] <= n_hyp     # frames exit apart
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and torch.equal(got[k], w), \
+                (refits, k)
 
 
 @pytest.mark.parametrize("coarse_stride", [1, 4])
