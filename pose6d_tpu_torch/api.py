@@ -16,7 +16,10 @@ disambiguation give the pose. One instance is one call of _frame, the
 function that serving.export_predictor also traces into its artifact.
 predict_with_operators() is the cached mode: the partial cloud's
 operators come precomputed from the host, and the pose is not
-disambiguated (there is no depth image).
+disambiguated (there is no depth image). The batched entries:
+pose_from_operators (the cached mode's pipeline) and
+pose_from_depth_operators (the same, then the flip stage against each
+frame's depth image; the online request's path after its cloud stage).
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ _NO_GRAD = ("a gradient-feature model (with_gradient_features) needs the "
             "partial cloud's tangent-gradient operators, which serving does "
             "not build (the JAX package's pad_cad_operators carries none "
             "either)")
+# pose_from_depth_operators' outputs that a Predictor does not return
+_BATCH_ONLY = ("R0", "t0", "flip_score", "flip_rmse")
 
 
 def pad_operators(ops: dict, v: int, device) -> dict:
@@ -66,6 +71,33 @@ def pose_from_operators(model: DPFMNet, cad: dict, pc: dict, diam,
                                 icp_coarse_stride=coarse_stride,
                                 generator=generator, uniforms=uniforms)
     del out["candidate"]
+    return out
+
+
+def pose_from_depth_operators(model: DPFMNet, cad: dict, pc: dict, diam, K,
+                              obs_z, mask, sym_rots,
+                              n_hypotheses: int = 131072,
+                              icp_iters: int = 30, coarse_stride: int = 1,
+                              generator=None, uniforms=None) -> dict:
+    """pose_from_operators, then depth-render flip disambiguation
+    (solvers/multistart.disambiguate_pose_depth at its defaults) on a
+    batch: K (B, 3, 3), obs_z (B, H, W) observed depth in cm (0 where
+    invalid), mask (B, H, W), sym_rots (B, n, 3, 3) each frame's flip
+    bank (ops/symmetry.disambiguation_bank of its CAD, built on the
+    host). Returns pose_from_operators' keys with R, t the flipped and
+    refined pose, and R0, t0 the base ICP pose (icp_rmse stays its
+    rmse), flip_hypothesis, flip_score and flip_rmse (the full-resolution
+    rmse of the final refine)."""
+    out = pose_from_operators(model, cad, pc, diam, n_hypotheses=n_hypotheses,
+                              icp_iters=icp_iters,
+                              coarse_stride=coarse_stride,
+                              generator=generator, uniforms=uniforms)
+    fix = disambiguate_pose_depth(cad["xyz"], cad["valid"], pc["xyz"],
+                                  pc["valid"], out["R"], out["t"], diam, K,
+                                  obs_z, mask, sym_rots=sym_rots)
+    out.update(R=fix["R"], t=fix["t"], R0=out["R"], t0=out["t"],
+               flip_hypothesis=fix["hypothesis"], flip_score=fix["score"],
+               flip_rmse=fix["rmse"])
     return out
 
 
@@ -174,19 +206,24 @@ class Predictor:
     def _pose_from_cloud(self, state: dict, pc: dict, K, obs_z, mask,
                          generator=None, uniforms=None) -> dict:
         cad, diam = state["cad"], state["diam"]
-        if self._tta > 1 or self._zk:
-            out = candidate_select_pose(
-                self.model, cad, pc, diam, n_fmap=self.model.cfg.n_fmap,
-                tta_rotations=self._tta, zoomout_k=self._zk,
-                ransac_hypotheses=self._rh, icp_iters=self._icp_iters,
-                select_margin=self._sel_margin,
-                select_trigger=self._sel_trigger, K=K, obs_z=obs_z,
-                mask=mask, generator=generator, uniforms=uniforms)
-        else:
-            out = pose_from_operators(self.model, cad, pc, diam,
-                                      n_hypotheses=self._rh,
-                                      icp_iters=self._icp_iters,
-                                      generator=generator, uniforms=uniforms)
+        if not (self._tta > 1 or self._zk):
+            if not self.disambiguate:
+                return pose_from_operators(
+                    self.model, cad, pc, diam, n_hypotheses=self._rh,
+                    icp_iters=self._icp_iters, generator=generator,
+                    uniforms=uniforms)
+            out = pose_from_depth_operators(
+                self.model, cad, pc, diam, K, obs_z, mask, state["sym_rots"],
+                n_hypotheses=self._rh, icp_iters=self._icp_iters,
+                generator=generator, uniforms=uniforms)
+            return {k: v for k, v in out.items() if k not in _BATCH_ONLY}
+        out = candidate_select_pose(
+            self.model, cad, pc, diam, n_fmap=self.model.cfg.n_fmap,
+            tta_rotations=self._tta, zoomout_k=self._zk,
+            ransac_hypotheses=self._rh, icp_iters=self._icp_iters,
+            select_margin=self._sel_margin, select_trigger=self._sel_trigger,
+            K=K, obs_z=obs_z, mask=mask, generator=generator,
+            uniforms=uniforms)
         if self.disambiguate:
             fix = disambiguate_pose_depth(
                 cad["xyz"], cad["valid"], pc["xyz"], pc["valid"], out["R"],
@@ -266,4 +303,4 @@ class Predictor:
 
 
 __all__ = ["HYP_BLOCK", "MAX_RAW", "Predictor", "pad_operators",
-           "pose_from_operators"]
+           "pose_from_depth_operators", "pose_from_operators"]

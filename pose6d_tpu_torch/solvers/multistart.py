@@ -20,6 +20,7 @@ import torch
 
 from ..ops.masking import masked_mean
 from ..ops.nn import nearest_valid
+from ..utils.profiling import count, counting, span, spanned
 from .icp import icp_cloud_to_model
 from .verify_pose import depth_consistency_score
 
@@ -119,6 +120,18 @@ def disambiguate_pose(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0, diam,
             "hypothesis": best, "all_scores": scores}
 
 
+def _live_bank_rows(sym_rots, bsz: int, n_hyp: int, device):
+    """Bank rows that do distinct work: every row but the identity pads
+    after row 0 (disambiguation_bank pads with the identity); all of the
+    generic bank's."""
+    if sym_rots is None:
+        return torch.tensor(bsz * n_hyp, device=device)
+    rots = torch.as_tensor(sym_rots, device=device).expand(bsz, n_hyp, 3, 3)
+    eye = torch.eye(3, dtype=rots.dtype, device=device)
+    return bsz * n_hyp - (rots[:, 1:] == eye).flatten(2).all(-1).sum()
+
+
+@spanned("flip")
 def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
                             diam, K, observed_z, mask, icp_iters: int = 15,
                             stride: int = 4, margin: float = 0.25,
@@ -134,7 +147,9 @@ def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
     1 and up are handicapped by (1 + margin); the first minimum wins and
     gets icp_iters - bank_iters more iterations (five at full resolution).
     Returns dict R (B, 3, 3), t (B, 3), score (B,), hypothesis (B,),
-    all_scores (B, H).
+    all_scores (B, H), rmse (B,): the full-resolution ICP rmse of the
+    returned pose (the winner's refine, or its bank ICP where there is
+    no refine).
     """
     bsz = cad_xyz.shape[0]
     Rs, ts = flip_hypotheses(cad_xyz, cad_valid, R0, t0, rots=sym_rots)
@@ -148,18 +163,21 @@ def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
                                  max_corr_dist=0.2 * d, max_iter=iters,
                                  coarse_stride=icp_coarse_stride,
                                  fine_iters=fine_iters)
-        return icp["R"], icp["t"]
+        return icp["R"], icp["t"], icp["rmse"]
 
     def per_hyp(x):
         return _per_hyp(x, n_hyp)
 
-    Rr, tr = refine(per_hyp(cad_xyz), per_hyp(cad_valid), per_hyp(pc_xyz),
-                    per_hyp(pc_valid), Rs.reshape(-1, 3, 3),
-                    ts.reshape(-1, 3), per_hyp(diam), bank_iters, 1)
+    with span("flip.bank"):
+        Rr, tr, rmse = refine(per_hyp(cad_xyz), per_hyp(cad_valid),
+                              per_hyp(pc_xyz), per_hyp(pc_valid),
+                              Rs.reshape(-1, 3, 3), ts.reshape(-1, 3),
+                              per_hyp(diam), bank_iters, 1)
     Rr, tr = Rr.reshape(bsz, n_hyp, 3, 3), tr.reshape(bsz, n_hyp, 3)
-    scores = depth_consistency_score(
-        cad_xyz[:, None], cad_valid[:, None], Rr, tr, K[:, None],
-        observed_z[:, None], mask[:, None], diam[:, None], stride=stride)
+    with span("flip.score"):
+        scores = depth_consistency_score(
+            cad_xyz[:, None], cad_valid[:, None], Rr, tr, K[:, None],
+            observed_z[:, None], mask[:, None], diam[:, None], stride=stride)
     # hysteresis: the base hypothesis stays unless another is clearly
     # better (near-ties are rendering noise, not evidence)
     handicap = torch.full((n_hyp,), 1.0 + margin, device=scores.device)
@@ -167,8 +185,17 @@ def disambiguate_pose_depth(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0,
     best = torch.argmin(scores * handicap, dim=-1)
     ar = torch.arange(bsz, device=cad_xyz.device)
     R_w, t_w = Rr[ar, best], tr[ar, best]
+    if counting():
+        count("flip.frames", bsz)
+        count("flip.bank_rows", bsz * n_hyp)
+        count("flip.changed", (best != 0).sum())
+        count("flip.live_bank_rows",
+              _live_bank_rows(sym_rots, bsz, n_hyp, cad_xyz.device))
     if icp_iters > bank_iters:
-        R_w, t_w = refine(cad_xyz, cad_valid, pc_xyz, pc_valid, R_w, t_w,
-                          diam, icp_iters - bank_iters, 5)
+        with span("flip.refine"):
+            R_w, t_w, rmse = refine(cad_xyz, cad_valid, pc_xyz, pc_valid,
+                                    R_w, t_w, diam, icp_iters - bank_iters, 5)
+    else:
+        rmse = rmse.reshape(bsz, n_hyp)[ar, best]
     return {"R": R_w, "t": t_w, "score": scores[ar, best],
-            "hypothesis": best, "all_scores": scores}
+            "hypothesis": best, "all_scores": scores, "rmse": rmse}

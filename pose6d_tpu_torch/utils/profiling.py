@@ -17,9 +17,13 @@ Spans: pose (solvers/candidates.candidate_select_pose), model
 (models/dpfm.DPFMNet.forward), filter
 (solvers/fmap2pointmap.spatial_filtering_fmap2pointmap), ransac,
 ransac.block, ransac.refit (solvers/ransac.ransac_pose), icp, icp.match,
-icp.update (solvers/icp.icp_point2point). Counters: ransac.frame_blocks
-(frames x blocks the loop ran), ransac.live_frame_blocks (the blocks
-each frame ran while it still drew).
+icp.update (solvers/icp.icp_point2point), flip, flip.bank, flip.score,
+flip.refine (solvers/multistart.disambiguate_pose_depth). Counters:
+ransac.frame_blocks (frames x blocks the loop ran),
+ransac.live_frame_blocks (the blocks each frame ran while it still
+drew), flip.frames, flip.changed (frames whose winner is not the base
+hypothesis), flip.bank_rows (frames x hypotheses), flip.live_bank_rows
+(the bank rows that are not an identity pad after row 0).
 """
 from __future__ import annotations
 
@@ -43,6 +47,12 @@ def _on() -> bool:
     trace."""
     return (_profiler._is_profiler_enabled
             and not torch.compiler.is_exporting())
+
+
+def counting() -> bool:
+    """Whether spans and counters are on: for a counter whose value costs
+    work to compute, which the caller then computes only when asked."""
+    return _on()
 
 
 @contextlib.contextmanager
