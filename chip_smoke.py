@@ -65,7 +65,9 @@ both consistency kernels at endpoint widths 2, 8 and 30 (their any-width
 instances) and their 3-D sums bit for bit as before (sha256 of seeded
 one-tile inputs), RANSAC's scoring kernel bit for bit against its plain
 version at the batch path's block and at B = 1 (and ransac_pose with
-it against the plain scoring, one launch a block), and prints each cdist shape's kernel route and each
+it against the plain scoring, one launch a block), ICP's update kernel
+against its plain version and float64 Horn at the cell's shapes (and
+icp_point2point with it, one launch an iteration), and prints each cdist shape's kernel route and each
 redesigned shape's time over its bound and over the library call.
 Each phase prints one
 JSON line; a failure anywhere raises. The line before the
@@ -104,17 +106,18 @@ F32_EPS = 2.0 ** -24
 PATH_KERNELS = {
     "serve": ("flash_cross_attention", "consistency_sum_rank_major",
               "masked_topk_cdist", "masked_argmin_cdist",
-              "ransac_inlier_counts"),
+              "ransac_inlier_counts", "icp_kabsch_update"),
     "online": ("flash_cross_attention", "consistency_sum_rank_major",
                "masked_topk_cdist", "masked_argmin_cdist",
-               "ransac_inlier_counts"),
+               "ransac_inlier_counts", "icp_kabsch_update"),
     "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
     "train": ("flash_cross_attention", "flash_cross_attention_backward",
               "masked_argmin_cdist"),
     "eval": ("flash_cross_attention", "consistency_sum_rank_major",
              "masked_topk_cdist", "masked_argmin_cdist",
              "masked_consistency_sum"),
-    "pose_stage": ("masked_argmin_cdist", "ransac_inlier_counts"),
+    "pose_stage": ("masked_argmin_cdist", "ransac_inlier_counts",
+                   "icp_kabsch_update"),
     "variants": ("flash_cross_attention", "flash_cross_attention_backward"),
     "variant_serve": ("flash_cross_attention", "consistency_sum_rank_major",
                       "masked_topk_cdist", "masked_argmin_cdist"),
@@ -128,7 +131,7 @@ PATH_KERNELS = {
     # serving_export: the exported artifact's requests (the online frame)
     "export": ("flash_cross_attention", "consistency_sum_rank_major",
                "masked_topk_cdist", "masked_argmin_cdist",
-               "ransac_inlier_counts"),
+               "ransac_inlier_counts", "icp_kabsch_update"),
     # data_parallel: the ranks' train (the IR probe on) and eval jobs
     "data_parallel": ("flash_cross_attention",
                       "flash_cross_attention_backward",
@@ -247,6 +250,8 @@ def check_kernels(dev) -> dict:
     # its own generator: the checks before it keep their inputs
     rows["ransac_inlier_counts"] = check_ransac_counts(
         dev, torch.Generator(device=dev).manual_seed(20))
+    rows["icp_kabsch_update"] = check_icp_update(
+        dev, torch.Generator(device=dev).manual_seed(23))
     for name, row in rows.items():
         emit("kernel_check", name=name, **row)
     return rows
@@ -1582,6 +1587,199 @@ def check_ransac_counts(dev, g) -> dict:
                "operations per live (hypothesis, valid pair) at 67 TFLOP/s")
 
 
+# ICP's update kernel: (B, N, M) of the cell's calls: the base ICP's
+# coarse (CAD 5120 at stride 4) and fine matches, the flip bank's (B x 6),
+# and a one-frame request's
+ICP_UPDATE_SHAPES = {"b64_coarse": (64, 2048, 1280),
+                     "b64_fine": (64, 2048, 5120),
+                     "b384_fine": (384, 2048, 5120), "b1": (1, 2048, 5120)}
+# f32 rounding of the sums and the Jacobi on well-determined frames: R's
+# entries, and t over the cloud's distance from the origin (~50)
+ICP_UPDATE_TOL_R = 2e-5
+ICP_UPDATE_TOL_T = 2e-5
+# icp_point2point with the kernel against the plain op: the JAX parity
+# test's tolerances (tests/test_torch_solvers.py, R 1e-4, t 1e-3)
+ICP_LOOP_TOL_R, ICP_LOOP_TOL_T = 1e-4, 1e-3
+
+
+def icp_frames(dev, g, bsz: int, n: int, m: int):
+    """ICP inputs as the cell's cloud-to-model ICP sees them: tgt a CAD of
+    m points on an ellipsoid shell (semi-axes 7, 5, 3: every rotation
+    determined) about the origin, src n of its points posed at z ~ 50
+    plus 0.05 noise, the first 70-100 % valid; (R, t) the inverse pose
+    off by up to 4 degrees and 0.5; the match (j, dmin) by nearest_valid,
+    the gate (0.2 x diameter 14)^2. Frame 0 has no valid point (it keeps
+    its pose) when B > 1. Returns the op's arguments."""
+    from pose6d_tpu_torch.ops.nn import nearest_valid
+    u = torch.randn((bsz, m, 3), device=dev, generator=g)
+    tgt = (u / u.norm(dim=-1, keepdim=True)
+           * torch.tensor([7.0, 5.0, 3.0], device=dev)).contiguous()
+    tv = torch.ones((bsz, m), dtype=torch.bool, device=dev)
+    q, r = torch.linalg.qr(torch.randn((bsz, 3, 3), device=dev, generator=g))
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None]
+    Rg = q * torch.sign(torch.linalg.det(q))[:, None, None]
+    tg = torch.tensor([0.0, 0.0, 50.0], device=dev) + torch.randn(
+        (bsz, 3), device=dev, generator=g)
+    pick = torch.randint(0, m, (bsz, n), device=dev, generator=g)
+    src = (torch.gather(tgt, 1, pick[..., None].expand(-1, -1, 3))
+           @ Rg.transpose(1, 2) + tg[:, None] + 0.05 * torch.randn(
+               (bsz, n, 3), device=dev, generator=g)).contiguous()
+    n_valid = (n * (0.7 + 0.3 * torch.rand(bsz, device=dev, generator=g))
+               ).long()
+    valid = torch.arange(n, device=dev)[None] < n_valid[:, None]
+    if bsz > 1:
+        valid[0] = False
+    axis = torch.randn((bsz, 3), device=dev, generator=g)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    ang = torch.rand((bsz, 1, 1), device=dev, generator=g) * math.radians(4)
+    x, y, z = axis.unbind(-1)
+    zero = torch.zeros_like(x)
+    k = torch.stack([torch.stack([zero, -z, y], -1),
+                     torch.stack([z, zero, -x], -1),
+                     torch.stack([-y, x, zero], -1)], -2)
+    dr = torch.eye(3, device=dev) + torch.sin(ang) * k + (
+        1 - torch.cos(ang)) * (k @ k)
+    R = (dr @ Rg.transpose(1, 2)).contiguous()
+    t = (-(R @ tg[..., None])[..., 0] + 0.5 * torch.randn(
+        (bsz, 3), device=dev, generator=g)).contiguous()
+    dmin, j = nearest_valid(src @ R.transpose(1, 2) + t[:, None], tgt, tv)
+    gate = torch.full((bsz,), (0.2 * 14.0) ** 2, device=dev)
+    return src, valid, tgt, j, dmin, gate, R, t
+
+
+def horn_f64(src, valid, tgt, j, dmin, gate):
+    """The update's (R, t) in float64: the same gate and pairs, centred
+    H, the top eigenvector of Horn's matrix by torch.linalg.eigh."""
+    from pose6d_tpu_torch.ops.kernels.icp import (horn_matrix,
+                                                  rotation_from_quat)
+    w = (valid & (dmin < gate[:, None])).double()[..., None]
+    d = torch.gather(tgt.double(), 1, j.long()[..., None].expand(-1, -1, 3))
+    s = src.double()
+    W = torch.clamp(w.sum(-2), min=1.0)
+    mu_s, mu_d = (s * w).sum(-2) / W, (d * w).sum(-2) / W
+    H = ((s - mu_s[:, None]) * w).transpose(1, 2) @ (d - mu_d[:, None])
+    R = rotation_from_quat(torch.linalg.eigh(horn_matrix(H))
+                           .eigenvectors[..., -1])
+    return R, mu_d - (R @ mu_s[..., None])[..., 0]
+
+
+def check_icp_update(dev, g) -> dict:
+    """ICP's update kernel at ICP_UPDATE_SHAPES: against the plain version
+    on the card and float64 Horn (R's entries within ICP_UPDATE_TOL_R, t
+    within ICP_UPDATE_TOL_T x the cloud's distance; applied equal, frame
+    0 with no pair keeps its pose bit for bit), two launches equal,
+    device time per call (graph replay) against the bound and the plain
+    version's and the pre-kernel update's (Kabsch by eigh, host waits
+    included); then icp_point2point at the cell's B = 64, 30 iterations at
+    stride 4: one launch an update, and its pose against the same loop
+    with the plain op (ICP_LOOP_TOL_*)."""
+    from pose6d_tpu_torch.ops import kernels as K
+    from pose6d_tpu_torch.solvers import icp as icp_mod
+    from pose6d_tpu_torch.solvers.kabsch import kabsch_umeyama
+    rows = {}
+    for label, (bsz, n, m) in ICP_UPDATE_SHAPES.items():
+        args = icp_frames(dev, g, bsz, n, m)
+        src, valid, tgt, j, dmin, gate, R, t = args
+        got = K.icp_kabsch_update(*args)
+        again = K.icp_kabsch_update(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"icp_kabsch_update {label}: launches "
+                                 "differ")
+        plain = K.icp_kabsch_update_plain(*args)
+        if not torch.equal(got[2], plain[2]) or got[2][0] != (bsz == 1) \
+                or not got[2][1:].all():
+            raise AssertionError(f"icp_kabsch_update {label}: applied "
+                                 f"{got[2].tolist()} vs {plain[2].tolist()}")
+        if bsz > 1 and not (torch.equal(got[0][0], R[0])
+                            and torch.equal(got[1][0], t[0])):
+            raise AssertionError(f"icp_kabsch_update {label}: a frame "
+                                 "without pairs moved")
+        r64, t64 = horn_f64(*args[:6])
+        scale = src.abs().amax().item()
+        live = slice(1 if bsz > 1 else 0, None)
+        errs = dict(
+            max_abs_err=max((got[0] - plain[0]).abs().max().item(),
+                            (got[1] - plain[1]).abs().max().item()),
+            r_vs_plain=(got[0] - plain[0]).abs().max().item(),
+            t_vs_plain=(got[1] - plain[1]).abs().max().item() / scale,
+            r_vs_f64=(got[0][live].double() - r64[live]).abs().max().item(),
+            t_vs_f64=(got[1][live].double() - t64[live]).abs().max().item()
+            / scale,
+            plain_r_vs_f64=(plain[0][live].double() - r64[live]).abs().max()
+            .item())
+        if max(errs["r_vs_plain"], errs["r_vs_f64"]) > ICP_UPDATE_TOL_R or \
+                max(errs["t_vs_plain"], errs["t_vs_f64"]) > ICP_UPDATE_TOL_T:
+            raise AssertionError(f"icp_kabsch_update {label}: {errs}")
+        w = valid & (dmin < gate[:, None])
+        gated = float(w.sum().item())
+        b_ms, by = bound(4 * bsz * n * 4 + bsz * n + 12 * gated
+                         + 4 * bsz * (12 + 1) * 2, 40 * gated)
+
+        def eigh_update():
+            wf = w.float()
+            R2, t2 = kabsch_umeyama(src, torch.gather(
+                tgt, 1, j.long()[..., None].expand(-1, -1, 3)), wf)
+            ok = wf.sum(-1) >= 3
+            return (torch.where(ok[:, None, None], R2, R),
+                    torch.where(ok[:, None], t2, t))
+        rows[label] = dict(
+            errs, gated_share=gated / (bsz * n),
+            ms=graph_ms(lambda: K.icp_kabsch_update(*args)),
+            plain_ms=cuda_ms(lambda: K.icp_kabsch_update_plain(*args), 3),
+            eigh_update_ms=cuda_ms(eigh_update, 3),
+            bound_ms=b_ms, bound_by=by)
+    # icp_point2point at the cell's shape, the kernel against the plain op
+    args = icp_frames(dev, g, 64, 2048, 5120)
+    src, valid, tgt, _, _, gate, R, t = args
+    tv = torch.ones(tgt.shape[:2], dtype=torch.bool, device=dev)
+
+    def run():
+        return icp_mod.icp_point2point(src, valid, tgt, tv, R, t,
+                                       max_corr_dist=gate.sqrt(),
+                                       max_iter=30, coarse_stride=4)
+    before = K.LAUNCHES["icp_kabsch_update"]
+    got = run()
+    launches = K.LAUNCHES["icp_kabsch_update"] - before
+    if launches != 30:
+        raise AssertionError(f"icp_point2point: {launches} update launches "
+                             "for 30 iterations")
+    kernel_op = icp_mod.icp_kabsch_update
+    icp_mod.icp_kabsch_update = K.icp_kabsch_update_plain
+    try:
+        want = run()
+    finally:
+        icp_mod.icp_kabsch_update = kernel_op
+    scale = src.abs().amax().item()
+    loop = dict(launches=launches,
+                r_vs_plain=(got["R"] - want["R"]).abs().max().item(),
+                t_vs_plain=(got["t"] - want["t"]).abs().max().item() / scale,
+                n_corr_equal=bool(torch.equal(got["n_corr"],
+                                              want["n_corr"])))
+    if loop["r_vs_plain"] > ICP_LOOP_TOL_R or \
+            loop["t_vs_plain"] > ICP_LOOP_TOL_T:
+        raise AssertionError(f"icp_point2point with the kernel: {loop}")
+    rows["icp_b64"] = loop
+    for label, res in rows.items():
+        emit("kernel_case", name="icp_kabsch_update", case=label, **res)
+    main = rows["b64_coarse"]
+    return dict(
+        route="cuda", source="pose6d_tpu_torch/csrc/icp_kabsch_update.cu",
+        replaces="none (the JAX package's ICP update is plain XLA, "
+                 "pose6d_tpu/solvers/icp.py, kabsch.py)",
+        tol=f"R {ICP_UPDATE_TOL_R}, t {ICP_UPDATE_TOL_T} x the cloud's "
+            "distance, against the plain version and float64 Horn",
+        **{k: main[k] for k in ("max_abs_err", "r_vs_plain", "t_vs_plain",
+                                "r_vs_f64", "t_vs_f64", "ms", "plain_ms",
+                                "eigh_update_ms", "bound_ms", "bound_by")},
+        library_ms=None, b64_fine=rows["b64_fine"],
+        b384_fine=rows["b384_fine"], b1=rows["b1"], icp_b64=rows["icp_b64"],
+        shapes="src (64,2048,3), tgt (64,1280,3) (CAD 5120 at stride 4); "
+               "b64_fine: M 5120; b384_fine: B 384 (the flip bank); b1: "
+               "B 1, M 5120",
+        timing="ms: device time per call (graph replay); bound: 33 bytes "
+               "a gated source point, 40 operations")
+
+
 # endpoint widths other than 3 (both consistency kernels' any-width
 # instances): each held to its plain version at B = 16, and timed at
 # CONSISTENCY_TIMED
@@ -1851,10 +2049,12 @@ def rot_deg(Ra, Rb) -> float:
 ONLINE_FRAMES = ((38, False), (3, True))
 ONLINE_DRAW_BLOCKS = 131072 // 512      # RANSAC blocks of a request
 # masked_argmin_cdist launches of one online request: base ICP 30 + 1,
-# the flip bank 4 coarse + 1 fine + 1 final, the winner 5 + 5 + 1
+# the flip bank 4 coarse + 1 fine + 1 final, the winner 5 + 5 + 1; an
+# icp_kabsch_update launch each of those but the 3 final matches
 ONLINE_LAUNCHES = {"flash_cross_attention": 2,
                    "consistency_sum_rank_major": 3,
-                   "masked_topk_cdist": 1, "masked_argmin_cdist": 48}
+                   "masked_topk_cdist": 1, "masked_argmin_cdist": 48,
+                   "icp_kabsch_update": 45}
 
 
 def render_online_frames() -> list:
@@ -2603,8 +2803,9 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
 
 
 def eigh_sync_probe(dev) -> dict:
-    """Whether the batched 4x4 torch.linalg.eigh of Kabsch (one call per
-    ICP iteration) makes the host wait for the device: the synchronising
+    """Whether the batched 4x4 torch.linalg.eigh of Kabsch (RANSAC's
+    refits and GNC; ICP's update no longer calls it) makes the host wait
+    for the device: the synchronising
     runtime calls of one call under torch.profiler, and the host time
     of one call queued behind three 4096^3 f32 products (a call that
     waits returns after them; a pure launch returns at once)."""

@@ -14,6 +14,7 @@ from .consistency import (consistency_sum_rank_major,
                           consistency_sum_rank_major_plain,
                           masked_consistency_sum,
                           masked_consistency_sum_plain)
+from .icp import icp_kabsch_update, icp_kabsch_update_plain
 from .ransac import ransac_inlier_counts, ransac_inlier_counts_plain
 
 __all__ = ["LAUNCHES", "build_all", "reset_launches",
@@ -24,4 +25,5 @@ __all__ = ["LAUNCHES", "build_all", "reset_launches",
            "masked_topk_cdist", "masked_topk_cdist_plain",
            "consistency_sum_rank_major", "consistency_sum_rank_major_plain",
            "masked_consistency_sum", "masked_consistency_sum_plain",
-           "ransac_inlier_counts", "ransac_inlier_counts_plain"]
+           "ransac_inlier_counts", "ransac_inlier_counts_plain",
+           "icp_kabsch_update", "icp_kabsch_update_plain"]

@@ -65,13 +65,15 @@ SOURCES = {
     "ransac_inlier_counts.cu": {
         "ransac_inlier_counts_tiles": [_P],
         "ransac_inlier_counts_f32": [_P] * 8 + [_I] * 4 + [_P]},
+    "icp_kabsch_update.cu": {
+        "icp_kabsch_update_f32": [_P] * 11 + [_I] * 3 + [_P]},
 }
 
 # launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES = {"flash_cross_attention": 0, "flash_cross_attention_backward": 0,
             "consistency_sum_rank_major": 0, "masked_consistency_sum": 0,
             "masked_topk_cdist": 0, "masked_argmin_cdist": 0,
-            "ransac_inlier_counts": 0}
+            "ransac_inlier_counts": 0, "icp_kabsch_update": 0}
 
 # launches split by kernel instance, counted beside LAUNCHES: {(kernel,
 # *instance): launches}; the flash kernels' instance is the caller's

@@ -2,22 +2,18 @@
 
 Each iteration pairs every transformed source point with its nearest
 valid target point (the masked argmin kernel on the card) and takes a
-distance-gated Kabsch update. The iteration count is fixed: a Python
-loop eagerly, one while_loop node under torch.export.
+distance-gated Kabsch update (the icp_kabsch_update op: one kernel on
+the card, no host read). The iteration count is fixed: a Python loop
+eagerly, one while_loop node under torch.export.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.kernels.icp import icp_kabsch_update
 from ..ops.loops import run_while
 from ..ops.nn import nearest_valid
-from ..utils.profiling import span, spanned
-from .kabsch import kabsch_umeyama
-
-
-def _gather_rows(x, idx):
-    """x (B, M, 3), idx (B, N) -> (B, N, 3)."""
-    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, 3))
+from ..utils.profiling import count, counting, span, spanned
 
 
 @spanned("icp")
@@ -32,29 +28,31 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
     full resolution. Returns dict R (B, 3, 3), t (B, 3), rmse (B,),
     n_corr (B,).
     """
-    src = src.float()
+    src = src.float().contiguous()
+    src_valid = src_valid.contiguous()
     tgt = tgt.float()
     bsz = src.shape[0]
-    gate = torch.as_tensor(max_corr_dist, dtype=torch.float32,
-                           device=src.device).expand(bsz)[:, None] ** 2
+    gate = (torch.as_tensor(max_corr_dist, dtype=torch.float32,
+                            device=src.device).expand(bsz) ** 2).contiguous()
 
     def nn_pairs(R, t, tg, tv):
         moved = src @ R.transpose(-1, -2) + t[:, None, :]
         dmin, j = nearest_valid(moved, tg, tv)
-        w = (src_valid & (dmin < gate)).float()
-        return j, w, dmin
+        return j, dmin
 
     def iterate(R, t, tg, tv, n: int):
         """n iterations against (tg, tv): a fixed-count loop
         (ops/loops.run_while, a while_loop under torch.export)."""
         def step(i, R, t):
             with span("icp.match"):
-                j, w, _ = nn_pairs(R, t, tg, tv)
+                j, dmin = nn_pairs(R, t, tg, tv)
             with span("icp.update"):
-                ok = (w.sum(-1) >= 3)
-                R2, t2 = kabsch_umeyama(src, _gather_rows(tg, j), w)
-                return (i + 1, torch.where(ok[:, None, None], R2, R),
-                        torch.where(ok[:, None], t2, t))
+                R, t, applied = icp_kabsch_update(src, src_valid, tg, j, dmin,
+                                                  gate, R, t)
+            if counting():
+                count("icp.frame_updates", bsz)
+                count("icp.applied_updates", applied)
+            return i + 1, R, t
 
         _, R, t = run_while(lambda i, R, t: i < n, step,
                             (torch.zeros((), dtype=torch.int64,
@@ -69,9 +67,10 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
         R, t = iterate(R, t, tgt[:, ::coarse_stride].contiguous(),
                        tgt_valid[:, ::coarse_stride].contiguous(), n_coarse)
     if n_fine > 0:
-        R, t = iterate(R, t, tgt, tgt_valid, n_fine)
+        R, t = iterate(R, t, tgt.contiguous(), tgt_valid, n_fine)
     with span("icp.match"):
-        _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
+        _, dmin = nn_pairs(R, t, tgt, tgt_valid)
+        w = (src_valid & (dmin < gate[:, None])).float()
     n_corr = w.sum(-1)
     rmse = torch.sqrt((dmin * w).sum(-1) / torch.clamp(n_corr, min=1.0))
     return {"R": R, "t": t, "rmse": rmse, "n_corr": n_corr}

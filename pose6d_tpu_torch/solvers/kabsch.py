@@ -4,40 +4,28 @@ Horn's quaternion method: the optimal R is the rotation of the
 largest-eigenvalue eigenvector of a symmetric 4x4 matrix built from the
 cross-covariance. The JAX package finds that eigenvector with 8 unrolled
 Jacobi sweeps, which eager PyTorch would issue as ~1.5k tiny launches
-per call (31 calls per ICP). This port takes it from one batched
-torch.linalg.eigh instead; R is invariant to q -> -q, so the two agree.
+per call. This module takes it from one batched torch.linalg.eigh
+instead; R is invariant to q -> -q, so the two agree. On the card eigh
+waits on the host for its error check, so ICP, which updates 30 to 50
+times a call, no longer comes here: its update is one kernel with the
+JAX package's Jacobi (ops/kernels/icp.py). RANSAC's two refits a call
+and GNC keep this eigh path (one wait each), and with it their bits.
 All functions take leading batch dimensions.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.kernels.icp import horn_matrix, rotation_from_quat
+
 
 def _rotation_from_H_quat(H):
     """Optimal proper rotation maximizing trace(R^T H) via Horn (1987).
     H (..., 3, 3) weighted cross-covariance; returns R (..., 3, 3) with
     R src ~ dst."""
-    S = H.unbind(-2)
-    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = (
-        r.unbind(-1) for r in S)
-    N = torch.stack([
-        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
-        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
-        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
-        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
-    ], -2)
-    q = torch.linalg.eigh(N).eigenvectors[..., -1]   # largest eigenvalue
-    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
-                        min=1e-12)
-    w, x, y, z = q.unbind(-1)
-    return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
-                     2 * (x * z + w * y)], -1),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
-                     2 * (y * z - w * x)], -1),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
-                     1 - 2 * (x * x + y * y)], -1),
-    ], -2)
+    # largest eigenvalue
+    return rotation_from_quat(
+        torch.linalg.eigh(horn_matrix(H)).eigenvectors[..., -1])
 
 
 def _rotation_from_H_svd(H):

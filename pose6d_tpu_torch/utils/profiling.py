@@ -21,7 +21,9 @@ icp.update (solvers/icp.icp_point2point), flip, flip.bank, flip.score,
 flip.refine (solvers/multistart.disambiguate_pose_depth). Counters:
 ransac.frame_blocks (frames x blocks the loop ran),
 ransac.live_frame_blocks (the blocks each frame ran while it still
-drew), flip.frames, flip.changed (frames whose winner is not the base
+drew), icp.frame_updates (frames x the ICP iterations run),
+icp.applied_updates (the updates taken: at least 3 gated pairs),
+flip.frames, flip.changed (frames whose winner is not the base
 hypothesis), flip.bank_rows (frames x hypotheses), flip.live_bank_rows
 (the bank rows that are not an identity pad after row 0).
 """

@@ -13,6 +13,7 @@ import torch
 
 from pose6d_tpu_torch.ops import sampling
 from pose6d_tpu_torch.ops.kernels import attention as kattn
+from pose6d_tpu_torch.solvers.icp import icp_point2point
 from pose6d_tpu_torch.solvers.ransac import ransac_pose
 from pose6d_tpu_torch.spectral.lobpcg import lobpcg_standard
 
@@ -67,6 +68,14 @@ def test_lobpcg_exported_equals_eager():
     _assert_bit_equal(got, want)
 
 
+def _op_nodes(program, op):
+    """{submodule name: call_function nodes of `op`}, over the program's
+    graph modules (a while_loop's body is a submodule)."""
+    return {name: sum(1 for n in m.graph.nodes if n.target == op)
+            for name, m in program.graph_module.named_modules()
+            if isinstance(m, torch.fx.GraphModule)}
+
+
 def _ransac_case():
     """Two frames of 300 correspondences under known poses, 90 % and 25 %
     inliers: the first meets the trial bound after one block, the second
@@ -99,11 +108,8 @@ def test_ransac_exported_equals_eager_and_exits_early():
     program = _export(fn, *args)
     assert _while_loops(program) == 1
     # the scoring is one op node, inside the loop's step
-    top = program.graph_module
-    op = torch.ops.pose6d_tpu_torch.ransac_inlier_counts.default
-    nodes = {name: sum(1 for n in m.graph.nodes if n.target == op)
-             for name, m in top.named_modules()
-             if isinstance(m, torch.fx.GraphModule)}
+    nodes = _op_nodes(program,
+                      torch.ops.pose6d_tpu_torch.ransac_inlier_counts.default)
     assert sum(nodes.values()) == 1 and nodes[""] == 0, nodes
     want = fn(*args)
     got = program.module()(*args)
@@ -111,6 +117,41 @@ def test_ransac_exported_equals_eager_and_exits_early():
     trials = want[3].tolist()
     assert trials[0] < trials[1] < 4096        # each frame's own exit
     assert trials[0] % 256 == 0 and trials[1] % 256 == 0
+
+
+def test_icp_exported_equals_eager_with_one_update_node():
+    """ICP (6 iterations at full resolution) exported alone: one
+    while_loop whose body holds the update as one icp_kabsch_update node
+    and no eigensolve; the program replays the eager run bit for bit."""
+    rng = np.random.default_rng(8)
+    cad = (rng.normal(size=(2, 300, 3)) * [4.0, 3.0, 2.0]).astype(np.float32)
+    q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    q *= np.sign(np.linalg.det(q))
+    pc = (cad[:, :200] @ q.T + [0.0, 0.0, 50.0]
+          + 0.01 * rng.normal(size=(2, 200, 3))).astype(np.float32)
+    t = torch.as_tensor
+    args = (t(pc), t(np.arange(200) < 180).expand(2, -1).contiguous(),
+            t(cad), t(np.ones((2, 300), bool)),
+            t(np.stack([q.T, q.T]).astype(np.float32)),
+            t(np.float32([[0.2, -0.1, -50.0]] * 2)) @ t(q.astype(np.float32)))
+
+    def fn(src, sv, tgt, tv, R, tt):
+        out = icp_point2point(src, sv, tgt, tv, R, tt, max_corr_dist=2.0,
+                              max_iter=6)
+        return out["R"], out["t"], out["rmse"], out["n_corr"]
+
+    program = _export(fn, *args)
+    assert _while_loops(program) == 1
+    nodes = _op_nodes(program,
+                      torch.ops.pose6d_tpu_torch.icp_kabsch_update.default)
+    assert sum(nodes.values()) == 1 and nodes[""] == 0, nodes
+    targets = [str(n.target) for _, m in program.graph_module.named_modules()
+               if isinstance(m, torch.fx.GraphModule)
+               for n in m.graph.nodes if n.op == "call_function"]
+    assert not [x for x in targets if "eigh" in x], targets
+    want = fn(*args)
+    _assert_bit_equal(program.module()(*args), want)
+    assert (want[3] > 150).all()
 
 
 def _cloud(seed, n=512, n_valid=430):
@@ -160,6 +201,10 @@ def _op_cases():
     rs, ts = torch.linalg.qr(rand(2, 9, 3, 3))[0], rand(2, 9, 3)
     vmask = (torch.rand(2, 40, generator=g) > 0.2).float()
     dpc = torch.sqrt(torch.cdist(cb[:, :8], cb[:, :8]) ** 2)
+    j = torch.randint(0, 40, (2, 40), generator=g, dtype=torch.int32)
+    dmin = torch.rand(2, 40, generator=g) * 2
+    icp_valid = torch.rand(2, 40, generator=g) > 0.2
+    icp_valid[1] = False
     ops = torch.ops.pose6d_tpu_torch
     return {
         "masked_topk_cdist_k5": (ops.masked_topk_cdist, (a, b, bv, 5)),
@@ -172,6 +217,9 @@ def _op_cases():
                                  (rs, ts, ca, cb, vmask,
                                   torch.tensor([4.0, 9.0]),
                                   torch.tensor([True, False]))),
+        "icp_kabsch_update": (ops.icp_kabsch_update,
+                              (ca, icp_valid, cb, j, dmin,
+                               torch.tensor([1.0, 1.0]), rs[:, 0], ts[:, 0])),
         "flash_cross_attention": (ops.flash_cross_attention,
                                   (q, k, v, kv, 0.25, False)),
         "flash_cross_attention_lse": (ops.flash_cross_attention,
@@ -194,7 +242,7 @@ def test_every_kernel_op_has_cpu_cuda_and_fake_implementations():
     names = ("masked_topk_cdist", "masked_argmin_cdist",
              "consistency_sum_rank_major", "masked_consistency_sum",
              "flash_cross_attention", "flash_cross_attention_backward",
-             "ransac_inlier_counts")
+             "ransac_inlier_counts", "icp_kabsch_update")
     for name in names:
         opdef = OPDEFS[f"pose6d_tpu_torch::{name}"]
         assert set(opdef._backend_fns) == {"cpu", "cuda"}, name

@@ -13,6 +13,7 @@ import torch
 import pose6d_tpu.models.attention as jax_attention
 from pose6d_tpu.models.attention import MultiHeadedAttention as JaxMHA
 from pose6d_tpu.ops import nn as jax_nn
+from pose6d_tpu.solvers import kabsch as jax_kabsch
 from pose6d_tpu.ops.pallas import (consistency_sum_rank_major as jax_rm,
                                    masked_argmin_cdist as jax_argmin,
                                    masked_consistency_sum as jax_mcs,
@@ -29,6 +30,8 @@ from pose6d_tpu_torch.ops.kernels.attention import (
 from pose6d_tpu_torch.ops.kernels.consistency import (
     PCM_COL_TILE, PCM_ROW_TILE, RM_COL_TILE, RM_ROW_TILE,
     consistency_segments, rank_major_segments)
+from pose6d_tpu_torch.ops.kernels.icp import (icp_kabsch_update,
+                                              rotation_from_h_jacobi)
 from pose6d_tpu_torch.ops.kernels.ransac import (
     RANSAC_HYP_TILE, RANSAC_PAIR_TILE, ransac_inlier_counts, ransac_segments)
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, consistency_sum_rank_major,
@@ -827,3 +830,139 @@ def test_ransac_segments_cover_every_pair_tile(bsz, h, n):
     if (bsz, h, n) == (1, 512, 10240):    # a one-frame request's block
         assert ransac_segments(1, 512, 10240, 132, 16) == tiles
 
+
+
+def _icp_update_case(seed, bsz, n, m, noise=0.05):
+    """ICP update inputs as the cloud-to-model ICP sees them: tgt a CAD of
+    m points on an ellipsoid shell (semi-axes 7, 5, 3: every rotation
+    determined), src n of them posed about 50 out plus noise, the last
+    tenth of each frame's rows padding (invalid); the match (j, dmin)
+    from the exact nearest neighbour under a pose a few degrees off, the
+    gate (0.2 x 14)^2. Returns the op's arguments as tensors."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(bsz, m, 3))
+    tgt = (u / np.linalg.norm(u, axis=-1, keepdims=True)
+           * [7.0, 5.0, 3.0]).astype(np.float32)
+    src = np.empty((bsz, n, 3), np.float32)
+    R = np.empty((bsz, 3, 3), np.float32)
+    t = np.empty((bsz, 3), np.float32)
+    for f in range(bsz):
+        q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        q *= np.sign(np.linalg.det(q))
+        tg = np.array([0.0, 0.0, 50.0]) + rng.normal(size=3)
+        src[f] = (tgt[f, rng.integers(0, m, n)] @ q.T + tg
+                  + noise * rng.normal(size=(n, 3)))
+        w = rng.normal(size=3) * 0.05
+        a = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                      [-w[1], w[0], 0]]) / a
+        dr = np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+        R[f] = dr @ q.T
+        t[f] = -R[f] @ tg + rng.normal(size=3) * 0.3
+    valid = np.arange(n)[None].repeat(bsz, 0) < n - n // 10
+    moved = np.einsum("bij,bnj->bni", R.astype(np.float64), src) + t[:, None]
+    d2 = ((moved[:, :, None] - tgt[:, None].astype(np.float64)) ** 2).sum(-1)
+    j = d2.argmin(-1).astype(np.int32)
+    dmin = d2.min(-1).astype(np.float32)
+    gate = np.full(bsz, (0.2 * 14.0) ** 2, np.float32)
+    return [torch.as_tensor(x) for x in (src, valid, tgt, j, dmin, gate, R,
+                                         t)]
+
+
+def _horn_f64(src, valid, tgt, j, dmin, gate):
+    """(R, t) of the gated weighted fit in float64: centred H, Horn's
+    matrix, numpy's eigh."""
+    s, d = src.double().numpy(), tgt.double().numpy()
+    Rs, ts = [], []
+    for f in range(s.shape[0]):
+        w = (valid[f] & (dmin[f] < gate[f])).numpy()
+        a, b = s[f][w], d[f][j[f].numpy()[w]]
+        mu_a, mu_b = a.mean(0), b.mean(0)
+        H = (a - mu_a).T @ (b - mu_b) / len(a)
+        (sxx, sxy, sxz), (syx, syy, syz), (szx, szy, szz) = H
+        N = np.array([
+            [sxx + syy + szz, syz - szy, szx - sxz, sxy - syx],
+            [syz - szy, sxx - syy - szz, sxy + syx, szx + sxz],
+            [szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy],
+            [sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz]])
+        qw, qx, qy, qz = np.linalg.eigh(N)[1][:, -1]
+        R = np.array([
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+             2 * (qx * qz + qw * qy)],
+            [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+             2 * (qy * qz - qw * qx)],
+            [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+             1 - 2 * (qx * qx + qy * qy)]])
+        Rs.append(R)
+        ts.append(mu_b - R @ mu_a)
+    return np.stack(Rs), np.stack(ts)
+
+
+@pytest.mark.parametrize("bsz,n,m", [(3, 400, 256), (2, 1000, 1280),
+                                     (1, 64, 5120)])
+def test_icp_update_plain_matches_jax_jacobi_and_float64_horn(bsz, n, m):
+    """The op on CPU tensors (its plain version, no launch) against the
+    JAX package's Kabsch (Horn by its unrolled Jacobi) fed the same
+    gated pairs, and against float64 Horn. Tolerances: float32 sums of
+    points ~50 out (the means carry ~50 x 2^-24 each) and a Jacobi
+    converged to float32: R's entries within 2e-6, t within 5e-5 of the
+    JAX package's; 2e-6 and 5e-5 of float64's."""
+    args = _icp_update_case(bsz * 7 + n, bsz, n, m)
+    src, valid, tgt, j, dmin, gate, R, t = args
+    before = dict(LAUNCHES)
+    R2, t2, applied = icp_kabsch_update(*args)
+    assert LAUNCHES == before
+    assert R2.dtype == t2.dtype == torch.float32
+    assert applied.dtype == torch.uint8 and applied.tolist() == [1] * bsz
+    w = (valid & (dmin < gate[:, None])).float()
+    assert 0.5 < float(w.sum()) / w.numel() < 1.0
+    d = torch.gather(tgt, 1, j.long()[..., None].expand(-1, -1, 3))
+    jR, jt = jax.vmap(jax_kabsch.kabsch_umeyama)(
+        jnp.asarray(src.numpy()), jnp.asarray(d.numpy()),
+        jnp.asarray(w.numpy()))
+    np.testing.assert_allclose(R2.numpy(), np.asarray(jR), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(t2.numpy(), np.asarray(jt), rtol=0, atol=5e-5)
+    R64, t64 = _horn_f64(*args[:6])
+    np.testing.assert_allclose(R2.numpy(), R64, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(t2.numpy(), t64, rtol=0, atol=5e-5)
+
+
+def test_icp_update_degenerate_frames():
+    """Frame 0 keeps two gated pairs and frame 1 has no valid point: both
+    keep R and t bit for bit, applied 0. Frame 2's padded rows (invalid)
+    change nothing whatever they hold: far coordinates, the last index
+    and a zero distance give the bits of zeros, index 0 and 1e9."""
+    src, valid, tgt, j, dmin, gate, R, t = _icp_update_case(11, 3, 300, 200)
+    valid[0] = False
+    valid[0, :2] = True
+    dmin[0, :2] = 0.0
+    valid[1] = False
+    pad = ~valid[2]
+    src[2, pad] = 1e6
+    j[2, pad] = 199
+    dmin[2, pad] = 0.0
+    R2, t2, applied = icp_kabsch_update(src, valid, tgt, j, dmin, gate, R, t)
+    assert applied.tolist() == [0, 0, 1]
+    assert torch.equal(R2[:2], R[:2]) and torch.equal(t2[:2], t[:2])
+    src[2, pad], j[2, pad], dmin[2, pad] = 0.0, 0, 1e9
+    plain = icp_kabsch_update(src, valid, tgt, j, dmin, gate, R, t)
+    assert torch.equal(plain[0], R2) and torch.equal(plain[1], t2)
+
+
+def test_icp_update_rotation_on_exactly_symmetric_h():
+    """An exactly symmetric H zeroes the first row of Horn's matrix off
+    the diagonal: every pivot with p = 0 takes the |apq| < 1e-30 guard.
+    diag(3, 2, 1) (+ symmetric off-diagonals) gives R = I exactly;
+    diag(1, 1, -5) ties the two largest eigenvalues, and the first
+    column wins (R = diag(1, -1, -1)), as jnp.argmax picks it in the JAX
+    package: both bit for bit the JAX package's."""
+    hs = np.array([[[3.0, 0.5, -0.25], [0.5, 2.0, 0.125], [-0.25, 0.125, 1.0]],
+                   [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, -5.0]]],
+                  np.float32)
+    got = rotation_from_h_jacobi(torch.as_tensor(hs)).numpy()
+    want = np.asarray(jax.vmap(jax_kabsch._rotation_from_H_quat)(
+        jnp.asarray(hs)))
+    np.testing.assert_array_equal(got[0], np.eye(3, dtype=np.float32))
+    np.testing.assert_array_equal(got[1], np.diag([1.0, -1.0, -1.0])
+                                  .astype(np.float32))
+    np.testing.assert_array_equal(got, want)

@@ -10,6 +10,9 @@ arithmetic shows here first.
 Re-record the golden only for a deliberate change of that arithmetic:
 
     python tests/test_torch_pose_pinned.py --write
+
+which recomputes the outputs on the file's saved inputs (add
+`--new-inputs` to make the inputs anew as well).
 """
 import sys
 from pathlib import Path
@@ -118,9 +121,12 @@ def test_pose_path_bit_for_bit(pinned, prefix):
 
 if __name__ == "__main__" and "--write" in sys.argv:
     GOLDEN.parent.mkdir(exist_ok=True)
-    made = _frames()
-    inputs = {f"in.{i}.{side}.{k}": np.asarray(ops[k])
-              for i, pair in enumerate(made)
-              for side, ops in zip(("cad", "pc"), pair) for k in OPS}
+    if GOLDEN.exists() and "--new-inputs" not in sys.argv:
+        saved = np.load(GOLDEN)
+        inputs = {k: saved[k] for k in saved.files if k.startswith("in.")}
+    else:
+        inputs = {f"in.{i}.{side}.{k}": np.asarray(ops[k])
+                  for i, pair in enumerate(_frames())
+                  for side, ops in zip(("cad", "pc"), pair) for k in OPS}
     np.savez(GOLDEN, **inputs, **outputs(saved_frames(inputs)))
     print("wrote", GOLDEN)

@@ -300,3 +300,100 @@ def test_icp_cloud_to_model_matches_jax(coarse_stride):
     np.testing.assert_allclose(out["rmse"][0].numpy(),
                                np.asarray(ref["rmse"]), rtol=1e-3)
     assert int(out["n_corr"][0]) == int(ref["n_corr"])
+
+
+def _icp_inline(src, src_valid, tgt, tgt_valid, R0, t0, max_corr_dist,
+                max_iter, coarse_stride, fine_iters=5):
+    """icp_point2point as it ran before the update op: the gate, the
+    gather and kabsch_umeyama (Horn by torch.linalg.eigh) inline, the
+    update kept where at least 3 pairs pass."""
+    from pose6d_tpu_torch.ops.nn import nearest_valid
+    bsz = src.shape[0]
+    gate = torch.as_tensor(max_corr_dist, dtype=torch.float32).expand(
+        bsz)[:, None] ** 2
+
+    def nn_pairs(R, t, tg, tv):
+        moved = src @ R.transpose(-1, -2) + t[:, None, :]
+        dmin, j = nearest_valid(moved, tg, tv)
+        return j, (src_valid & (dmin < gate)).float(), dmin
+
+    def iterate(R, t, tg, tv, n):
+        for _ in range(n):
+            j, w, _ = nn_pairs(R, t, tg, tv)
+            ok = w.sum(-1) >= 3
+            R2, t2 = kabsch.kabsch_umeyama(src, torch.gather(
+                tg, 1, j.long()[..., None].expand(-1, -1, 3)), w)
+            R = torch.where(ok[:, None, None], R2, R)
+            t = torch.where(ok[:, None], t2, t)
+        return R, t
+
+    R, t = R0, t0
+    n_fine = max_iter if coarse_stride <= 1 else min(fine_iters, max_iter)
+    if max_iter - n_fine > 0:
+        R, t = iterate(R, t, tgt[:, ::coarse_stride],
+                       tgt_valid[:, ::coarse_stride], max_iter - n_fine)
+    R, t = iterate(R, t, tgt, tgt_valid, n_fine)
+    _, w, dmin = nn_pairs(R, t, tgt, tgt_valid)
+    n_corr = w.sum(-1)
+    rmse = torch.sqrt((dmin * w).sum(-1) / torch.clamp(n_corr, min=1.0))
+    return {"R": R, "t": t, "rmse": rmse, "n_corr": n_corr}
+
+
+@pytest.mark.parametrize("case", ["stride1", "stride4", "bank"])
+def test_icp_point2point_matches_pre_kernel_loop(case):
+    """icp_point2point (the update op: Horn by the fixed-sweep Jacobi)
+    against a copy of its pre-op loop (Horn by eigh) on the same frames:
+    three clouds, one of them with fewer than 3 pairs within the gate
+    (its pose kept), at coarse stride 1 and 4 and as a flip bank (each
+    frame repeated under 4 start rotations, B x H = 12). Both reach the
+    same correspondences each step; the eigensolvers differ by float32
+    rounding: the JAX parity test's tolerances (R 1e-4, t 1e-3), n_corr
+    exact."""
+    rng = np.random.default_rng(5)
+    bsz, m, n = 3, 400, 160
+    cad = (rng.normal(size=(bsz, m, 3)) * [4.0, 3.0, 2.0]).astype(np.float32)
+    cad_valid = np.arange(m)[None].repeat(bsz, 0) < 380
+    pc = np.zeros((bsz, n, 3), np.float32)
+    R0, t0 = [], []
+    for f in range(bsz):
+        R_gt = _rotation(rng)
+        t_gt = np.array([1.0, 2.0, 60.0], np.float32)
+        sel = rng.permutation(380)[:150]
+        pc[f, :150] = (cad[f, sel] @ R_gt.T + t_gt
+                       + 0.01 * rng.normal(size=(150, 3)))
+        a = np.radians(4.0)
+        Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                       [0, 0, 1]])
+        R0.append(R_gt @ Rz)
+        t0.append(t_gt + np.array([0.3, -0.2, 0.4]))
+    pc_valid = np.arange(n)[None].repeat(bsz, 0) < 150
+    pc[2, :150] += 50.0          # frame 2: no pair within the gate
+    R0, t0 = np.asarray(R0, np.float32), np.asarray(t0, np.float32)
+    stride = 4 if case == "stride4" else 1
+    if case == "bank":
+        bank = [np.eye(3), np.diag([1.0, -1.0, -1.0]),
+                np.diag([-1.0, 1.0, -1.0]), np.diag([-1.0, -1.0, 1.0])]
+        R0 = np.stack([r @ b for r in R0 for b in bank]).astype(np.float32)
+        t0 = t0.repeat(4, 0)
+        cad, cad_valid, pc, pc_valid = (x.repeat(4, 0) for x in
+                                        (cad, cad_valid, pc, pc_valid))
+    # the cloud onto the CAD from the inverse pose, as icp_cloud_to_model
+    Rinv = np.transpose(R0, (0, 2, 1))
+    tinv = -np.einsum("bij,bj->bi", Rinv, t0).astype(np.float32)
+    args = [_t(x) for x in (pc, pc_valid, cad, cad_valid, Rinv, tinv)]
+    gate = _t(np.full(len(R0), 2.0, np.float32))
+    got = solvers.icp_point2point(*args, max_corr_dist=gate, max_iter=12,
+                                  coarse_stride=stride)
+    want = _icp_inline(*args, max_corr_dist=gate, max_iter=12,
+                       coarse_stride=stride)
+    kept = torch.as_tensor(np.arange(len(R0)) // (4 if case == "bank" else 1)
+                           == 2)
+    assert torch.equal(got["R"][kept], args[4][kept])
+    assert torch.equal(got["t"][kept], args[5][kept])
+    assert (got["n_corr"][~kept] > 100).all()
+    np.testing.assert_allclose(got["R"].numpy(), want["R"].numpy(), atol=1e-4)
+    np.testing.assert_allclose(got["t"].numpy(), want["t"].numpy(), atol=1e-3)
+    np.testing.assert_array_equal(got["n_corr"].numpy(),
+                                  want["n_corr"].numpy())
+    np.testing.assert_allclose(got["rmse"].numpy(), want["rmse"].numpy(),
+                               rtol=1e-3)
