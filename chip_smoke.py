@@ -14,7 +14,7 @@ flip disambiguation), timed per stage, held stage by stage against the
 port's CPU run, and a batch of 16 through candidate_select_pose ->
 disambiguate_pose_depth. Then cached-mode pose requests on the two
 committed LM frames through predict_with_operators, checked against the
-port's own CPU run, a timed batch of 16 frames, and training. Then the
+port's own CPU run, and training. Then the
 evaluation protocol on four instances (the LM frames and the rendered
 ones): evaluate() at the reference's settings and with TTA + ZoomOut,
 run_pose_stage (RANSAC with disambiguation, GNC) on its result files and
@@ -110,7 +110,6 @@ PATH_KERNELS = {
     "online": ("flash_cross_attention", "consistency_sum_rank_major",
                "masked_topk_cdist", "masked_argmin_cdist",
                "ransac_inlier_counts", "icp_kabsch_update"),
-    "pc_major_filter": ("masked_topk_cdist", "masked_consistency_sum"),
     "train": ("flash_cross_attention", "flash_cross_attention_backward",
               "masked_argmin_cdist"),
     "eval": ("flash_cross_attention", "consistency_sum_rank_major",
@@ -1316,7 +1315,7 @@ def consistency_inputs(dev, g, bsz: int, shared: bool = False, c: int = 3):
     model frame (+-10 cm), PC-side ones ~100 cm down the optical axis
     (the last axis at width c), half of them consistent, 70 % of the
     rows live at random. `shared` (3-D only):
-    as on the PC-major filter's real inputs, cb comes in groups of 5
+    as the filter's pairs in PC-major order, cb comes in groups of 5
     equal points (the 5 candidates of one PC point; pair index = PC
     point * 5 + rank), the CAD endpoints are drawn from 1024 points
     (nearby PC points share candidates), and the live rows are the
@@ -2844,116 +2843,6 @@ def eigh_sync_probe(dev) -> dict:
     return out
 
 
-def batch_throughput(frames, model, dev, gpu_line: str):
-    from pose6d_tpu_torch.api import pad_operators, pose_from_operators
-    from pose6d_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from pose6d_tpu_torch.ops.masking import V_CAD, V_PC
-    picks = [frames[i % len(frames)] for i in range(BATCH)]
-
-    def stack(key, v, fs=picks):
-        parts = [pad_operators(f[key], v, dev) for f in fs]
-        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-
-    cad, pc = stack("cad_ops", V_CAD), stack("pc_ops", V_PC)
-    diam = torch.tensor([f["diam"] for f in picks], device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def run():
-        return pose_from_operators(model, cad, pc, diam, n_hypotheses=4096,
-                                   icp_iters=30, coarse_stride=4,
-                                   generator=gen)
-
-    reset_launches()
-    out = run()
-    counts = dict(LAUNCHES)
-    for key in ("R", "t"):
-        if not bool(torch.isfinite(out[key]).all()):
-            raise AssertionError(f"non-finite {key} in the batch")
-    ms = cuda_ms(run, 3)
-    emit("batch_throughput", label="cached-mode path without disambiguation",
-         batch=BATCH, frames="8 copies each of the two LM frames",
-         ransac_hypotheses=4096, icp_iters=30, coarse_stride=4,
-         ms_per_batch=ms, frames_per_s=BATCH * 1e3 / ms, gpu=gpu_line,
-         launches=counts,
-         note="not comparable with bench.py (other recipe and hardware)")
-
-
-def stack_frames(frames, picks, dev):
-    """The picked frames' operators padded and stacked on `dev`, and
-    their CAD diameters."""
-    from pose6d_tpu_torch.api import pad_operators
-    from pose6d_tpu_torch.ops.masking import V_CAD, V_PC
-
-    def stack(key, v):
-        parts = [pad_operators(frames[i][key], v, dev) for i in picks]
-        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-
-    return (stack("cad_ops", V_CAD), stack("pc_ops", V_PC),
-            torch.tensor([frames[i]["diam"] for i in picks], device=dev))
-
-
-def pc_major_filter(frames, model, dev, gpu_line: str) -> dict:
-    """One B = 16 spatial-filter call in the PC-major layout (the
-    masked_consistency_sum kernel) against the rank-major one on the same
-    input. Pair indices must be equal; survivor masks may differ only on
-    pairs whose consistency mean, in either layout, lies within 0.1 % of
-    a pruning threshold in some round (the two sum in other orders, and
-    the PC-major kernel takes direct differences where the rank-major
-    path reads an expanded distance table). Returns the PC-major call's
-    launch counts."""
-    from pose6d_tpu_torch.ops.kernels import reset_launches
-    from pose6d_tpu_torch.solvers import spatial_filtering_fmap2pointmap
-    from pose6d_tpu_torch.solvers.fmap2pointmap import TAUS
-    cad, pc, diam = stack_frames(frames, [i % 2 for i in range(BATCH)], dev)
-    nf = model.cfg.n_fmap
-    with torch.inference_mode():
-        C = model(cad, pc)["C"]
-        args = (C, cad["evecs"][..., :nf], pc["evecs"][..., :nf], cad["xyz"],
-                pc["xyz"], cad["valid"], pc["valid"], diam)
-        runs, ms = {}, {}
-        for rank_major in (False, True):
-            spatial_filtering_fmap2pointmap(*args, rank_major=rank_major)
-            if not rank_major:
-                reset_launches()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            runs[rank_major] = spatial_filtering_fmap2pointmap(
-                *args, rank_major=rank_major, return_means=True)
-            end.record()
-            torch.cuda.synchronize()
-            ms["rank_major" if rank_major else "pc_major"] = \
-                start.elapsed_time(end)
-            if not rank_major:
-                counts = launched(PATH_KERNELS["pc_major_filter"],
-                                  "pc_major_filter")
-    (p_pc, v_pc, m_pc), (p_rm, v_rm, m_rm) = runs[False], runs[True]
-    if not torch.equal(p_pc, p_rm):
-        raise AssertionError("PC-major and rank-major pair indices differ")
-    # round r's thresholds: TAUS[r] for the plain rounds, the last two
-    # (tight, loose fallback) both for the final one
-    rounds = [TAUS[r:r + 1] for r in range(len(TAUS) - 2)] + [TAUS[-2:]]
-    near = torch.zeros_like(v_pc)
-    for means in (m_pc, m_rm):
-        for m, taus in zip(means, rounds):
-            for tau in taus:
-                thr = tau * diam[:, None]
-                near |= (m - thr).abs() <= 1e-3 * thr
-    flips = v_pc != v_rm
-    if bool((flips & ~near).any()):
-        raise AssertionError(f"{int((flips & ~near).sum())} survivor flips "
-                             "away from every threshold")
-    d0 = ((m_pc[0] - m_rm[0]).abs() / (TAUS[0] * diam[:, None]))
-    emit("pc_major_filter", batch=BATCH, pairs=int(p_pc.shape[-1]),
-         survivors_pc_major=int(v_pc.sum()), survivors_rank_major=int(
-             v_rm.sum()), flips=int(flips.sum()), near_threshold=int(
-             near.sum()), tol="0.1 % of the threshold",
-         round0_max_mean_diff_frac_threshold=float(d0.max()),
-         ms=ms, gpu=gpu_line, launches=counts)
-    return counts
-
-
 # the model variants of the config space (DPFMConfig keyword arguments);
 # the wide ones are config/unseen_lm300_wide*.yaml's widths
 WIDE = dict(n_feat=64, width=128, n_blocks=3, num_heads=4, gnn_dim=64,
@@ -3954,7 +3843,7 @@ def zoomout_rounds(C0, ex, ey, cad_xyz, pc_xyz, diam: float, d,
     device d, unpadded, each round's matches, gate, normal matrix and
     map kept: [(kn, p2p, keep, M, C), ...] as numpy."""
     from pose6d_tpu_torch.ops.nn import nearest_valid
-    from pose6d_tpu_torch.solvers.fmap2pointmap import _consistency_mean
+    from pose6d_tpu_torch.solvers.zoomout import _consistency_mean
 
     def on(x):
         return torch.as_tensor(np.asarray(x, np.float32))[None].to(d)
@@ -5509,8 +5398,6 @@ def run_all() -> int:
               "operators too (k_eig 64)")
     paths = {"online": paths_online, "export": paths_export,
              "serve": serve(frames, model, dev)}
-    batch_throughput(frames, model, dev, gpu_line)
-    paths["pc_major_filter"] = pc_major_filter(frames, model, dev, gpu_line)
     items = training_items(frames)
     train_check(items, dev)
     paths["train"] = train_run(items, dev, gpu_line)

@@ -7,22 +7,18 @@ spectral embedding (the masked argmin kernel).
 spatial_filtering_fmap2pointmap: top-k spectral CAD candidates per PC
 point (k = 5 by default), then rounds of pairwise-distance-consistency
 pruning on the schedule `taus` (by default 0.3, 0.15, then 0.055 with a
-0.065 fallback) x the CAD diameter. Two layouts of the same sums:
-- rank-major (default; pair index = rank * V2 + pc_point): the PC side
-  of the (P, P) distance matrix is the (V2, V2) point table tiled
-  k x k, and the sums read that table (consistency_sum_rank_major);
-- PC-major (rank_major=False; pair index = pc_point * k + rank): both
-  endpoints explicit (masked_consistency_sum), or, with
-  row_subsample > 0, a plain PyTorch screening mean over a strided row
-  subset (plain XLA in the JAX package too).
+0.065 fallback) x the CAD diameter. The sums run rank-major (pair
+index = rank * V2 + pc_point): the PC side of the (P, P) distance matrix
+is the (V2, V2) point table tiled k x k, and consistency_sum_rank_major
+reads that table. The pairs, masks and means are returned PC-major (pair
+index = pc_point * k + rank), the JAX package's order.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.geometry import pairwise_sqdist
-from ..ops.kernels.consistency import (consistency_sum_rank_major,
-                                       masked_consistency_sum)
+from ..ops.kernels.consistency import consistency_sum_rank_major
 from ..ops.nn import nearest_valid, topk_valid
 from ..utils.profiling import spanned
 
@@ -39,25 +35,6 @@ def naive_fmap2pointmap(C, evecs_x, evecs_y, x_valid, y_valid):
     pc_idx = torch.arange(p2p.shape[1], dtype=torch.int32,
                           device=p2p.device).expand_as(p2p)
     return torch.stack([p2p, pc_idx], dim=1), y_valid
-
-
-def _consistency_mean(ca, cb, row_valid, row_subsample: int = 0):
-    """mean_i |d(ca_i, ca_j) - d(cb_i, cb_j)| over valid rows i, per pair
-    j. ca, cb (B, P, 3); row_valid (B, P). row_subsample > 0: the mean
-    over a strided row subset, a screening approximation (see the JAX
-    function's note), plain PyTorch."""
-    p = ca.shape[1]
-    if row_subsample and row_subsample < p:
-        idx = torch.arange(row_subsample, device=ca.device) * (
-            p // row_subsample)
-        rw = row_valid[:, idx].float()
-        denom = torch.clamp(rw.sum(-1, keepdim=True), min=1.0)
-        da = torch.sqrt(pairwise_sqdist(ca[:, idx], ca))
-        db = torch.sqrt(pairwise_sqdist(cb[:, idx], cb))
-        return (torch.abs(da - db) * rw[..., None]).sum(1) / denom
-    w = row_valid.float()
-    denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
-    return masked_consistency_sum(ca, cb, w) / denom
 
 
 def _prune_schedule(cmean, valid, taus, diam_cad, means=None):
@@ -88,8 +65,6 @@ def _prune_schedule(cmean, valid, taus, diam_cad, means=None):
 def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
                                     x_valid, y_valid, diam_cad,
                                     k: int = K_CANDIDATES, taus=TAUS,
-                                    rank_major: bool = True,
-                                    row_subsample: int = 0,
                                     return_means: bool = False):
     """C (B, K, K); evecs_x (B, V1, K), evecs_y (B, V2, K); cad_xyz
     (B, V1, 3), pc_xyz (B, V2, 3); x_valid (B, V1), y_valid (B, V2);
@@ -102,9 +77,6 @@ def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
     with return_means, also the list of each pruning round's consistency
     means (B, V2 * k), PC-major (diagnostics).
     """
-    if rank_major and row_subsample:
-        raise ValueError("row_subsample applies to the PC-major path "
-                         "(rank_major=False)")
     taus = tuple(float(t) for t in taus)
     bsz, v2 = y_valid.shape
     diam_cad = torch.as_tensor(diam_cad, dtype=torch.float32,
@@ -117,29 +89,22 @@ def spatial_filtering_fmap2pointmap(C, evecs_x, evecs_y, cad_xyz, pc_xyz,
     pairs = torch.stack([cad_idx, pc_idx], dim=1)
     means = [] if return_means else None
 
-    def gather(xyz, idx):
-        return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3))
+    rank_major_idx = topk.transpose(1, 2).reshape(bsz, -1).long()
+    ca_rm = torch.gather(cad_xyz, 1,
+                         rank_major_idx[..., None].expand(-1, -1, 3))
+    dpc = torch.sqrt(pairwise_sqdist(pc_xyz, pc_xyz))
 
-    if rank_major:
-        ca_rm = gather(cad_xyz, topk.transpose(1, 2).reshape(bsz, -1))
-        dpc = torch.sqrt(pairwise_sqdist(pc_xyz, pc_xyz))
+    def cmean(v):
+        w = v.float()
+        denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+        return consistency_sum_rank_major(ca_rm, dpc, w, v2) / denom
 
-        def cmean(v):
-            w = v.float()
-            denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
-            return consistency_sum_rank_major(ca_rm, dpc, w, v2) / denom
+    def pc_major(x):
+        return x.reshape(bsz, k, v2).transpose(1, 2).reshape(bsz, -1)
 
-        def pc_major(x):
-            return x.reshape(bsz, k, v2).transpose(1, 2).reshape(bsz, -1)
-
-        valid = pc_major(_prune_schedule(cmean, y_valid.repeat(1, k),
-                                         taus, diam_cad, means))
-        means = None if means is None else [pc_major(m) for m in means]
-    else:
-        ca, cb = gather(cad_xyz, cad_idx), gather(pc_xyz, pc_idx)
-        valid = _prune_schedule(
-            lambda v: _consistency_mean(ca, cb, v, row_subsample),
-            y_valid.repeat_interleave(k, dim=1), taus, diam_cad, means)
+    valid = pc_major(_prune_schedule(cmean, y_valid.repeat(1, k), taus,
+                                     diam_cad, means))
+    means = None if means is None else [pc_major(m) for m in means]
     if return_means:
         return pairs, valid, means
     return pairs, valid

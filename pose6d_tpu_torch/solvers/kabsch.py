@@ -3,13 +3,12 @@
 Horn's quaternion method: the optimal R is the rotation of the
 largest-eigenvalue eigenvector of a symmetric 4x4 matrix built from the
 cross-covariance. The JAX package finds that eigenvector with 8 unrolled
-Jacobi sweeps, which eager PyTorch would issue as ~1.5k tiny launches
-per call. This module takes it from one batched torch.linalg.eigh
-instead; R is invariant to q -> -q, so the two agree. On the card eigh
-waits on the host for its error check, so ICP, which updates 30 to 50
-times a call, no longer comes here: its update is one kernel with the
-JAX package's Jacobi (ops/kernels/icp.py). RANSAC's two refits a call
-and GNC keep this eigh path (one wait each), and with it their bits.
+Jacobi sweeps; kabsch_umeyama takes it from one batched
+torch.linalg.eigh (R is invariant to q -> -q, so the two agree), which
+on the card waits on the host once for its error check. RANSAC's two
+refits and GNC call it. ICP, which updates 30 to 50 times a call, runs
+its update as one kernel with the JAX package's Jacobi instead
+(ops/kernels/icp.py). triad_rigid is RANSAC's closed-form hypothesis.
 All functions take leading batch dimensions.
 """
 from __future__ import annotations
@@ -28,27 +27,13 @@ def _rotation_from_H_quat(H):
         torch.linalg.eigh(horn_matrix(H)).eigenvectors[..., -1])
 
 
-def _rotation_from_H_svd(H):
-    """The same rotation from H = U S V^T: R = V diag(1, 1, sign det(V
-    U^T)) U^T (the JAX package's method="svd")."""
-    U, _, Vh = torch.linalg.svd(H)
-    V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
-    sign = torch.sign(torch.linalg.det(V @ Ut))
-    S = torch.diag_embed(torch.stack(
-        [torch.ones_like(sign), torch.ones_like(sign), sign], -1))
-    return V @ S @ Ut
-
-
-def kabsch_umeyama(src, dst, weights, method: str = "quat"):
+def kabsch_umeyama(src, dst, weights):
     """Rigid (R, t) minimizing sum_i w_i ||R src_i + t - dst_i||^2.
 
-    src, dst (..., N, 3); weights (..., N) nonnegative; method "quat"
-    (Horn's quaternion, the default) or "svd". Returns R (..., 3, 3), t
-    (..., 3). Degenerate inputs (all-zero weights or rank deficiency)
-    return a finite, valid rotation.
+    src, dst (..., N, 3); weights (..., N) nonnegative. Returns R
+    (..., 3, 3), t (..., 3). Degenerate inputs (all-zero weights or rank
+    deficiency) return a finite, valid rotation.
     """
-    if method not in ("quat", "svd"):
-        raise ValueError(f"method must be 'quat' or 'svd': {method!r}")
     src = src.float()
     dst = dst.float()
     w = weights.float()
@@ -60,8 +45,7 @@ def kabsch_umeyama(src, dst, weights, method: str = "quat"):
         (dst - mu_d[..., None, :]) * wn)
     # tiny jitter keeps the eigensolve well-behaved on degenerate inputs
     H = H + 1e-12 * torch.eye(3, dtype=H.dtype, device=H.device)
-    R = (_rotation_from_H_quat(H) if method == "quat"
-         else _rotation_from_H_svd(H))
+    R = _rotation_from_H_quat(H)
     t = mu_d - (R @ mu_s[..., None])[..., 0]
     return R, t
 

@@ -6,9 +6,8 @@ flip hypotheses (the base pose composed with model-frame rotations about
 the CAD centroid) by a short ICP each and keep the best-explaining one:
 disambiguate_pose_depth scores every refined hypothesis against the
 observed depth image (solvers/verify_pose.py), keeps the base unless an
-alternative is clearly better and refines the winner; the geometric
-disambiguate_pose scores by the one-way observed-cloud -> model
-distance. The H hypotheses of B frames run as one ICP batch of B * H.
+alternative is clearly better and refines the winner. The H hypotheses
+of B frames run as one ICP batch of B * H.
 so3_bank is the coarse rotation bank of rotation TTA.
 """
 from __future__ import annotations
@@ -18,8 +17,6 @@ import math
 import numpy as np
 import torch
 
-from ..ops.masking import masked_mean
-from ..ops.nn import nearest_valid
 from ..utils.profiling import count, counting, span, spanned
 from .icp import icp_cloud_to_model
 from .verify_pose import depth_consistency_score
@@ -87,37 +84,6 @@ def flip_hypotheses(cad_xyz, cad_valid, R0, t0, rots=None):
 
 def _per_hyp(x, n_hyp: int):
     return x.repeat_interleave(n_hyp, dim=0)
-
-
-def disambiguate_pose(cad_xyz, cad_valid, pc_xyz, pc_valid, R0, t0, diam,
-                      icp_iters: int = 15):
-    """The generic flip bank (H = 6), each hypothesis refined by
-    icp_iters ICP iterations at full resolution; the best explains the
-    observed cloud with the smallest mean one-way distance to the posed
-    model (ties to the lower hypothesis). Shapes as
-    disambiguate_pose_depth. Returns dict R (B, 3, 3), t (B, 3), score
-    (B,), hypothesis (B,), all_scores (B, H)."""
-    bsz = cad_xyz.shape[0]
-    Rs, ts = flip_hypotheses(cad_xyz, cad_valid, R0, t0)
-    n_hyp = Rs.shape[1]
-    diam = torch.as_tensor(diam, dtype=torch.float32,
-                           device=cad_xyz.device).expand(bsz)
-    cx, cv = _per_hyp(cad_xyz, n_hyp), _per_hyp(cad_valid, n_hyp)
-    px, pv = _per_hyp(pc_xyz, n_hyp), _per_hyp(pc_valid, n_hyp)
-    icp = icp_cloud_to_model(cx, cv, px, pv, Rs.reshape(-1, 3, 3),
-                             ts.reshape(-1, 3),
-                             max_corr_dist=0.2 * _per_hyp(diam, n_hyp),
-                             max_iter=icp_iters)
-    model_cam = cx @ icp["R"].transpose(-1, -2) + icp["t"][:, None]
-    d2, _ = nearest_valid(px.float().contiguous(), model_cam, cv)
-    scores = masked_mean(torch.sqrt(torch.clamp(d2, min=0.0)), pv,
-                         dim=-1).reshape(bsz, n_hyp)
-    best = torch.argmin(scores, dim=-1)
-    ar = torch.arange(bsz, device=cad_xyz.device)
-    Rr = icp["R"].reshape(bsz, n_hyp, 3, 3)
-    tr = icp["t"].reshape(bsz, n_hyp, 3)
-    return {"R": Rr[ar, best], "t": tr[ar, best], "score": scores[ar, best],
-            "hypothesis": best, "all_scores": scores}
 
 
 def _live_bank_rows(sym_rots, bsz: int, n_hyp: int, device):

@@ -1,13 +1,12 @@
 """Batched correspondence-RANSAC pose estimation (port of pose6d_tpu/solvers/ransac.py).
 
 Blocks of hypotheses are drawn from each frame's compacted valid table
-(3-point triads solved in closed form by default; any other sample size
-by a weighted Kabsch solve) and scored together by one kernel op
-(ops/kernels/ransac.py, which on the card keeps the residuals in
+(3-point triads solved in closed form) and scored together by one kernel
+op (ops/kernels/ransac.py, which on the card keeps the residuals in
 registers and skips the frames that have exited); a frame stops drawing
 once its best hypothesis's inlier ratio eps meets the trial bound
-T(eps) = log(1 - confidence) / log(1 - eps^s), s the sample size, or
-when the budget is spent. Frames of a batch exit independently: a frame that has met its
+T(eps) = log(1 - confidence) / log(1 - eps^3), or when the budget is
+spent. Frames of a batch exit independently: a frame that has met its
 bound keeps its best hypothesis while the others go on (as jax.vmap over
 lax.while_loop does). The block loop is one out-of-place step driven by
 ops/loops.run_while, so torch.export traces it as a while_loop whose
@@ -29,24 +28,23 @@ CONFIDENCE = 0.999   # success confidence of the early-exit bound
 REFIT_ROUNDS = 2
 
 
-def _required_trials(best, n_valid, sample_size: int):
+def _required_trials(best, n_valid):
     eps = torch.clamp(best / n_valid, 0.0, 1.0)
-    p_good = torch.clamp(eps ** sample_size, 1e-12, 1.0 - 1e-7)
+    p_good = torch.clamp(eps ** 3, 1e-12, 1.0 - 1e-7)
     return math.log1p(-CONFIDENCE) / torch.log1p(-p_good)
 
 
 @spanned("ransac")
 def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
-                hyp_block: int = 1024, generator=None, uniforms=None,
-                sample_size: int = 3):
+                hyp_block: int = 1024, generator=None, uniforms=None):
     """Robust (R, t) from putative correspondences, per frame.
 
     src, dst (B, N, 3) CAD- and PC-side coordinates; valid (B, N) bool;
-    threshold (B,) or scalar inlier distance; sample_size points per
-    hypothesis (3: the closed-form triad; any other: kabsch_umeyama).
-    Draws come from `generator` (a torch.Generator on src's device) or,
-    if given, from `uniforms` (B, n_blocks, hyp_block, sample_size) in
-    [0, 1), which lets a test hand the JAX package the same draws.
+    threshold (B,) or scalar inlier distance; each hypothesis is the
+    closed-form triad of 3 drawn pairs. Draws come from `generator` (a
+    torch.Generator on src's device) or, if given, from `uniforms`
+    (B, n_blocks, hyp_block, 3) in [0, 1), which lets a test hand the
+    JAX package the same draws.
 
     Returns dict: R (B, 3, 3), t (B, 3), inliers (B, N) bool,
     n_inliers (B,), n_trials (B,) trials drawn, ok (B,) bool.
@@ -75,15 +73,11 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
     rows = torch.arange(bsz, device=dev)[:, None, None]
 
     def run_block(u, active):
-        """Best hypothesis of one block per frame; u (B, hyp_block,
-        sample_size); the frames not `active` are not scored."""
+        """Best hypothesis of one block per frame; u (B, hyp_block, 3);
+        the frames not `active` are not scored."""
         slots = (u * n_valid_i.float()[:, None, None]).to(torch.int32)
         slots = torch.minimum(slots, max_slot).long()
-        if sample_size == 3:
-            Rs, ts = triad_rigid(src_c[rows, slots], dst_c[rows, slots])
-        else:
-            Rs, ts = kabsch_umeyama(src_c[rows, slots], dst_c[rows, slots],
-                                    torch.ones(slots.shape, device=dev))
+        Rs, ts = triad_rigid(src_c[rows, slots], dst_c[rows, slots])
         counts = ransac_inlier_counts(Rs, ts, src_c, dst_c, vmask_c, thr2,
                                       active)
         b = torch.argmax(counts, dim=-1)
@@ -96,12 +90,12 @@ def ransac_pose(src, dst, valid, threshold, n_hypotheses: int = 131072,
     def draw(blk):
         if uniforms is not None:
             return uniforms.index_select(1, blk.reshape(1))[:, 0]
-        return torch.rand((bsz, hyp_block, sample_size),
-                          generator=generator, device=dev)
+        return torch.rand((bsz, hyp_block, 3), generator=generator,
+                          device=dev)
 
     def active_of(best, done):
         return (done < n_blocks) & (
-            done * hyp_block < _required_trials(best, n_valid, sample_size))
+            done * hyp_block < _required_trials(best, n_valid))
 
     def more(blk, R, t, best, done):
         return (blk < n_blocks) & active_of(best, done).any()

@@ -10,20 +10,28 @@ Each round's nearest-neighbour step runs at the full width k1 through
 ops/nn.nearest_valid (the masked argmin kernel on the card, C = k1):
 the map's zero rows beyond the current size add a per-row constant to
 every distance, which cannot change the argmin. A gated round also
-scores every match's pairwise-distance consistency
-(fmap2pointmap._consistency_mean: masked_consistency_sum on the card).
+scores every match's pairwise-distance consistency (_consistency_mean:
+masked_consistency_sum, the PC-major kernel, on the card).
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.kernels.consistency import masked_consistency_sum
 from ..ops.nn import nearest_valid
-from .fmap2pointmap import _consistency_mean
 
 
 def _gather_rows(x, idx):
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1,
                                                            x.shape[-1]))
+
+
+def _consistency_mean(ca, cb, row_valid):
+    """mean_i |d(ca_i, ca_j) - d(cb_i, cb_j)| over valid rows i, per match
+    j. ca, cb (B, P, 3); row_valid (B, P)."""
+    w = row_valid.float()
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+    return masked_consistency_sum(ca, cb, w) / denom
 
 
 def zoomout_refine(C0, evecs_x, evecs_y, x_valid, y_valid, step: int = 4,

@@ -1,8 +1,8 @@
 """The spatial filter at any k and pruning schedule, and the two kernels
 it runs at that k, on the CPU against the JAX package on the same numpy
-inputs: the filter at k = 3, 8 and 24 with a non-default `taus` (both
-port layouts against JAX's PC-major path and its rank-major Pallas path
-in interpret mode), the masked top-k plain version at k = 1, 3, 8, 16,
+inputs: the filter at k = 3, 8 and 24 with a non-default `taus` (the
+port's one layout against JAX's PC-major path and its rank-major Pallas
+path in interpret mode), the masked top-k plain version at k = 1, 3, 8, 16,
 24, 32 (rows with fewer valid columns than k included) and the k-prefix
 rule the card's list instances rest on, and the rank-major sums at k = 1
 to 32 with their chunk and segment planning."""
@@ -40,20 +40,20 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))[None]   # add the frame axis
 
 
-@pytest.mark.parametrize("port_layout", ["rank_major", "pc_major"])
+# the port sums rank-major only; the id keeps naming its layout
+@pytest.mark.parametrize("port_layout", ["rank_major"])
 @pytest.mark.parametrize("jax_layout", ["rank_major", "pc_major"])
 @pytest.mark.parametrize("k", [3, 8, 24])
 def test_filter_any_k_and_taus_matches_jax(k, jax_layout, port_layout):
     """Well-separated geometry (tests/test_torch_filter_pcmajor.py): the
-    pairs and the survivor mask exactly equal, whichever layout each
+    pairs and the survivor mask exactly equal, whichever layout the JAX
     package takes."""
     args, diam = _filter_inputs()
     jp, jv = jax_solvers.spatial_filtering_fmap2pointmap(
         *(jnp.asarray(a) for a in args), diam, k=k, taus=TAUS,
         rank_major=jax_layout == "rank_major")
     tp, tv = solvers.spatial_filtering_fmap2pointmap(
-        *(_t(a) for a in args), torch.tensor([diam]), k=k, taus=TAUS,
-        rank_major=port_layout == "rank_major")
+        *(_t(a) for a in args), torch.tensor([diam]), k=k, taus=TAUS)
     v2 = len(args[6])
     assert tp.shape == (1, 2, v2 * k) and tv.shape == (1, v2 * k)
     np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))

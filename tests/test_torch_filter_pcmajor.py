@@ -1,18 +1,21 @@
-"""The port's PC-major spatial filter on the CPU against the JAX package
-on the same numpy inputs: the masked consistency sums (against the
-Pallas kernel in interpret mode), the exact PC-major filter, its
-row_subsample screening path, the naive nearest-embedding map, and the
-port's PC-major path against its own rank-major one."""
+"""The port's spatial filter on the CPU against the JAX package's
+PC-major path on the same numpy inputs: the masked consistency sums
+(against the Pallas kernel in interpret mode; ZoomOut's gate runs them),
+the filter's pairs, survivors and per-round means, and the naive
+nearest-embedding map."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pose6d_tpu import solvers as jax_solvers
+from pose6d_tpu.ops import nn as jax_nn
 from pose6d_tpu.ops.pallas import masked_consistency_sum as jax_mcs
+from pose6d_tpu.solvers import fmap2pointmap as jax_fmap
 from pose6d_tpu_torch import solvers
 from pose6d_tpu_torch.ops.kernels import (LAUNCHES, masked_consistency_sum,
                                           masked_consistency_sum_plain)
+from pose6d_tpu_torch.solvers.fmap2pointmap import TAUS
 
 torch.set_num_threads(2)
 
@@ -82,53 +85,68 @@ def test_masked_consistency_plain_matches_float64():
     assert (out[1] == 0).all()
 
 
-def test_pc_major_filter_matches_jax():
-    args, diam = _filter_inputs()
-    jp, jv = jax_solvers.spatial_filtering_fmap2pointmap(
-        *(jnp.asarray(a) for a in args), diam, k=5, rank_major=False)
-    tp, tv = solvers.spatial_filtering_fmap2pointmap(
-        *(_t(a) for a in args), torch.tensor([diam]), rank_major=False)
-    # well-separated geometry: pairs and survivor masks exactly equal
-    np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))
-    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
-    assert 0 < int(tv.sum()) < 5 * len(args[6])
+# the default plain rounds, then a final (tight, loose) pair that keeps
+# survivors at every k on this random geometry
+TAUS_LOOSE_FINAL = (0.3, 0.15, 0.08, 0.1)
 
 
-def test_pc_major_matches_rank_major():
-    """The two layouts of the port's filter, batched over two frames,
-    agree exactly here (the JAX package holds its own two equal on the
-    same construction)."""
+@pytest.mark.parametrize("k", [3, 5, 8])
+def test_filter_matches_jax_pc_major(k):
+    """The port's filter (rank-major sums), batched over two frames,
+    against the JAX package's PC-major path (rank_major=False) on each
+    frame's inputs."""
     frames = [_filter_inputs(seed) for seed in (11, 12)]
     args = [torch.stack([torch.as_tensor(f[0][i]) for f in frames])
             for i in range(7)]
-    diam = torch.tensor([f[1] for f in frames])
-    p_pc, v_pc, means = solvers.spatial_filtering_fmap2pointmap(
-        *args, diam, rank_major=False, return_means=True)
-    p_rm, v_rm = solvers.spatial_filtering_fmap2pointmap(*args, diam)
-    np.testing.assert_array_equal(p_pc.numpy(), p_rm.numpy())
-    np.testing.assert_array_equal(v_pc.numpy(), v_rm.numpy())
-    assert len(means) == 3 and means[0].shape == v_pc.shape
-
-
-@pytest.mark.parametrize("row_subsample", [128, 100])
-def test_row_subsample_matches_jax(row_subsample):
-    """The screening path (plain PyTorch, as it is plain XLA in JAX):
-    stride P // row_subsample, the first row_subsample strided rows."""
-    args, diam = _filter_inputs(seed=13)
-    jp, jv = jax_solvers.spatial_filtering_fmap2pointmap(
-        *(jnp.asarray(a) for a in args), diam, k=5,
-        row_subsample=row_subsample, rank_major=False)
-    before = dict(LAUNCHES)
     tp, tv = solvers.spatial_filtering_fmap2pointmap(
-        *(_t(a) for a in args), torch.tensor([diam]), rank_major=False,
-        row_subsample=row_subsample)
-    assert LAUNCHES == before
-    np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))
-    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
-    with pytest.raises(ValueError, match="PC-major"):
-        solvers.spatial_filtering_fmap2pointmap(
-            *(_t(a) for a in args), torch.tensor([diam]),
-            row_subsample=row_subsample)
+        *args, torch.tensor([f[1] for f in frames]), k=k,
+        taus=TAUS_LOOSE_FINAL)
+    for b, (fargs, diam) in enumerate(frames):
+        jp, jv = jax_solvers.spatial_filtering_fmap2pointmap(
+            *(jnp.asarray(a) for a in fargs), diam, k=k,
+            taus=TAUS_LOOSE_FINAL, rank_major=False)
+        # well-separated geometry: pairs and survivor masks exactly equal
+        np.testing.assert_array_equal(tp[b].numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tv[b].numpy(), np.asarray(jv))
+        assert 0 < int(tv[b].sum()) < k * len(fargs[6])
+
+
+def _jax_pc_major_means(args, diam, k):
+    """Each pruning round's consistency means of the JAX package's
+    PC-major path: its schedule run on its own mean, recorded."""
+    C, evecs_x, evecs_y, cad, pc, x_valid, y_valid = (jnp.asarray(a)
+                                                      for a in args)
+    _, topk = jax_nn.topk_valid(evecs_y, evecs_x @ C.T, x_valid, k=k)
+    cad_idx = topk.astype(jnp.int32).reshape(-1)
+    pc_idx = jnp.repeat(jnp.arange(pc.shape[0], dtype=jnp.int32), k)
+    ca, cb = cad[cad_idx], pc[pc_idx]
+    means = []
+
+    def cmean(v):
+        means.append(np.asarray(jax_fmap._consistency_mean(ca, cb, v)))
+        return means[-1]
+
+    jax_fmap._prune_schedule(cmean, jnp.repeat(y_valid, k), TAUS, diam)
+    return means
+
+
+@pytest.mark.parametrize("k", [3, 5, 8])
+def test_filter_means_match_jax_pc_major(k):
+    """return_means, round by round, against the JAX package's PC-major
+    means: the port sums rank-major over a PC distance table, JAX sums
+    direct differences pair by pair, both in float32."""
+    args, diam = _filter_inputs()
+    *_, means = solvers.spatial_filtering_fmap2pointmap(
+        *(_t(a) for a in args), torch.tensor([diam]), k=k,
+        return_means=True)
+    ref = _jax_pc_major_means(args, diam, k)
+    assert len(means) == len(ref) == len(TAUS) - 1
+    for m, r in zip(means, ref):
+        assert m.shape == (1, k * len(args[6]))
+        # means of up to V2 * k terms summed in two orders, the PC side
+        # from a distance table against direct differences: ~10 f32 ulps
+        # apart at k = 8
+        np.testing.assert_allclose(m[0].numpy(), r, rtol=1e-5, atol=0)
 
 
 def test_naive_fmap2pointmap_matches_jax():

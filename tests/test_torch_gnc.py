@@ -1,5 +1,5 @@
-"""The port's GNC-TLS solver, its consistency core and the solver registry
-on the CPU against the JAX package on the same numpy inputs."""
+"""The port's GNC-TLS solver and its consistency core on the CPU against
+the JAX package on the same numpy inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,8 +8,7 @@ import torch
 from scipy.spatial.transform import Rotation
 
 from pose6d_tpu.solvers import gnc as jax_gnc
-from pose6d_tpu_torch import solvers
-from pose6d_tpu_torch.solvers import gnc, registry
+from pose6d_tpu_torch.solvers import gnc
 
 from test_torch_online import _angle_deg
 
@@ -104,12 +103,3 @@ def test_gnc_triad_init_with_jax_draws_matches_jax(core):
         np.testing.assert_array_equal(out["inliers"][b].numpy(),
                                       np.asarray(ref["inliers"]))
         assert _angle_deg(out["R"][b].numpy(), frames[b][3]) < 0.1
-
-
-def test_registry_names():
-    assert registry.choose_pose_solver("gnc") is solvers.gnc_tls_pose
-    assert registry.choose_pose_solver() is solvers.ransac_pose
-    assert (registry.choose_fmap2pointmap_solver("naive")
-            is solvers.naive_fmap2pointmap)
-    assert (registry.choose_fmap2pointmap_solver()
-            is solvers.spatial_filtering_fmap2pointmap)

@@ -1,10 +1,8 @@
-"""The remaining solver options on the CPU against the JAX package on the
-same numpy inputs: Kabsch with method="svd", RANSAC with a sample size
-other than 3 (shared draws), and grouped FPS (the picks exactly, alone
-and in Predictor(fps_groups=8)'s cloud stage on a small online frame)."""
+"""Grouped FPS on the CPU against the JAX package on the same numpy
+inputs: the picks exactly, alone and in Predictor(fps_groups=8)'s cloud
+stage on a small online frame."""
 import warnings
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,112 +12,23 @@ from scipy.spatial.transform import Rotation
 
 import pose6d_tpu.api as jax_api
 import pose6d_tpu_torch.api as torch_api
-from pose6d_tpu import solvers as jax_solvers
 from pose6d_tpu.api import Predictor as JaxPredictor
 from pose6d_tpu.ops import sampling as jax_sampling
-from pose6d_tpu.solvers import kabsch as jax_kabsch
-from pose6d_tpu_torch import solvers
 from pose6d_tpu_torch.api import Predictor
 from pose6d_tpu_torch.data.shapes import random_shape
 from pose6d_tpu_torch.data.synth import default_intrinsics, rasterize_depth
 from pose6d_tpu_torch.models import DPFMNet, load_flax_checkpoint
 from pose6d_tpu_torch.ops import geometry, sampling
-from pose6d_tpu_torch.solvers import kabsch
 from pose6d_tpu_torch.spectral.operators import point_cloud_operators
 
 from test_torch_api import CKPT
 from test_torch_online import _cloud
-from test_torch_solvers import _rotation
 
 torch.set_num_threads(2)
 
 
 def _t(x):
     return torch.as_tensor(np.asarray(x))
-
-
-@pytest.mark.parametrize("case", ["plain", "weighted", "reflection_prone",
-                                  "zero_weights"])
-def test_kabsch_svd_matches_jax(case):
-    """method="svd" against JAX's: U S V^T with the determinant's sign.
-    "reflection_prone": a nearly planar set, where the plain SVD
-    solution is a reflection without the sign fix."""
-    rng = np.random.default_rng(6)
-    R_gt = _rotation(rng)
-    src = rng.normal(size=(4, 50, 3)).astype(np.float32) * 3
-    if case == "reflection_prone":
-        src[..., 2] *= 1e-3
-    dst = (src @ R_gt.T + np.array([1.0, -2.0, 0.5], np.float32)
-           + 0.01 * rng.normal(size=src.shape)).astype(np.float32)
-    w = np.ones((4, 50), np.float32)
-    if case == "weighted":
-        w = rng.random((4, 50)).astype(np.float32)
-    elif case == "zero_weights":
-        w = np.zeros((4, 50), np.float32)
-    jR, jt = jax.vmap(lambda s, d, ww: jax_kabsch.kabsch_umeyama(
-        s, d, ww, method="svd"))(jnp.asarray(src), jnp.asarray(dst),
-                                 jnp.asarray(w))
-    R, t = kabsch.kabsch_umeyama(_t(src), _t(dst), _t(w), method="svd")
-    assert torch.isfinite(R).all() and torch.isfinite(t).all()
-    # proper rotations; two f32 SVDs of a well-separated spectrum agree
-    # to f32 precision (the all-zero case: the jitter's identity)
-    np.testing.assert_allclose(torch.linalg.det(R).numpy(), 1.0, atol=1e-5)
-    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
-    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-4)
-    if case != "zero_weights":
-        Rq, _ = kabsch.kabsch_umeyama(_t(src), _t(dst), _t(w))
-        np.testing.assert_allclose(R.numpy(), Rq.numpy(), atol=1e-4)
-    with pytest.raises(ValueError, match="method"):
-        kabsch.kabsch_umeyama(_t(src), _t(dst), _t(w), method="eig")
-
-
-def _jax_uniforms(key, n_blocks, hyp_block, sample_size):
-    """The draws ransac_pose makes: split the key once per block, then
-    one uniform (hyp_block, sample_size) draw from the sub-key."""
-    out = []
-    for _ in range(n_blocks):
-        key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.uniform(
-            sub, (hyp_block, sample_size))))
-    return np.stack(out)
-
-
-def test_ransac_sample_size_4_matches_jax_with_shared_draws():
-    """4-point hypotheses solved by Kabsch, the bound at eps ** 4: two
-    frames (60 % and 30 % inliers) exit after JAX's block counts, with
-    its inlier counts and pose."""
-    rng = np.random.default_rng(8)
-    n, n_hyp, hyp_block, s = 300, 2048, 64, 4
-    srcs, dsts, valids, us, refs = [], [], [], [], []
-    for f, ratio in enumerate((0.6, 0.3)):
-        src = (rng.normal(size=(n, 3)) * 5).astype(np.float32)
-        dst = src @ _rotation(rng).T + np.array([3.0, 1.0, 40.0],
-                                                np.float32)
-        out = rng.random(n) > ratio
-        dst[out] = rng.normal(size=(out.sum(), 3)) * 5 + 40
-        dst = dst.astype(np.float32)
-        valid = np.arange(n) < 280
-        key = jax.random.PRNGKey(10 + f)
-        refs.append(jax_solvers.ransac_pose(
-            key, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid),
-            threshold=0.5, n_hypotheses=n_hyp, hyp_block=hyp_block,
-            sample_size=s))
-        srcs.append(src), dsts.append(dst), valids.append(valid)
-        us.append(_jax_uniforms(key, n_hyp // hyp_block, hyp_block, s))
-    res = solvers.ransac_pose(_t(np.stack(srcs)), _t(np.stack(dsts)),
-                              _t(np.stack(valids)), threshold=0.5,
-                              n_hypotheses=n_hyp, hyp_block=hyp_block,
-                              uniforms=_t(np.stack(us)), sample_size=s)
-    trials = [int(r["n_trials"]) for r in refs]
-    assert trials[0] < trials[1]
-    for f, ref in enumerate(refs):
-        assert int(res["n_trials"][f]) == trials[f]
-        assert int(res["n_inliers"][f]) == int(ref["n_inliers"])
-        # the same winning hypothesis, then two f32 least-squares refits
-        np.testing.assert_allclose(res["R"][f].numpy(), np.asarray(ref["R"]),
-                                   atol=1e-4)
-        np.testing.assert_allclose(res["t"][f].numpy(), np.asarray(ref["t"]),
-                                   atol=1e-4 * 50)   # 1e-4 of |t| ~ 40
 
 
 @pytest.mark.parametrize("n,n_valid,n_samples,groups",

@@ -1,6 +1,7 @@
 """The port's solvers on the CPU against the JAX package on the same
 numpy inputs: spatial filter (rank-major), Kabsch / triad, RANSAC with
-shared draws, cloud-to-model ICP."""
+shared draws, cloud-to-model ICP; and the port's two Horn solvers
+(Kabsch's eigh, the ICP update's Jacobi) against each other."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 from pose6d_tpu import solvers as jax_solvers
 from pose6d_tpu.solvers import kabsch as jax_kabsch
 from pose6d_tpu_torch import solvers
+from pose6d_tpu_torch.ops.kernels import icp_kabsch_update
 from pose6d_tpu_torch.solvers import kabsch
 from pose6d_tpu_torch.solvers import ransac as ransac_mod
 
@@ -73,11 +75,16 @@ def test_triad_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["plain", "weighted", "zero_weights",
-                                  "collinear"])
+                                  "collinear", "reflection_prone"])
 def test_kabsch_matches_jax(case):
+    """Case "reflection_prone": a nearly planar set, where an unsigned
+    SVD solution would be a reflection; Horn's quaternion is always
+    proper."""
     rng = np.random.default_rng(2)
     R_gt = _rotation(rng)
     src = rng.normal(size=(4, 60, 3)).astype(np.float32) * 3
+    if case == "reflection_prone":
+        src[..., 2] *= 1e-3
     if case == "collinear":
         src = np.linspace(0, 1, 60, dtype=np.float32)[None, :, None] \
             * rng.normal(size=(4, 1, 3)).astype(np.float32)
@@ -109,6 +116,69 @@ def test_kabsch_matches_jax(case):
     # reach f32 precision (q and -q give the same R)
     np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["plain", "reflection_prone",
+                                  "partial_mask", "two_pairs", "all_masked"])
+def test_kabsch_agrees_with_icp_update(case):
+    """The port's two Horn solvers at binary weights: kabsch_umeyama
+    (eigh; RANSAC's refits and GNC) and the ICP update's op (on the CPU
+    its plain twin: fixed-sweep Jacobi, the kernel's arithmetic), fed the
+    pairs as nearest neighbours j = i. A pair is masked as padding
+    (src_valid) or past the gate (dmin). Where at least 3 pairs pass, the
+    same (R, t) to f32 rounding; below 3 the update keeps its pose."""
+    rng = np.random.default_rng(7)
+    bsz, n = 4, 60
+    R_gt = _rotation(rng)
+    src = rng.normal(size=(bsz, n, 3)).astype(np.float32) * 3
+    if case == "reflection_prone":
+        src[..., 2] *= 1e-3
+    dst = (src @ R_gt.T + np.array([1.0, -2.0, 60.0], np.float32)
+           + 0.01 * rng.normal(size=src.shape)).astype(np.float32)
+    on = np.ones((bsz, n), bool)
+    if case == "partial_mask":
+        on = rng.random((bsz, n)) > 0.5
+    elif case == "two_pairs":
+        on[:, 2:] = False
+    elif case == "all_masked":
+        on[:] = False
+    even = np.arange(n) % 2 == 0
+    src_valid = ~(~on & even)
+    dmin = np.where(~on & ~even, 2.0, 0.5).astype(np.float32)
+    R0 = torch.as_tensor(_rotation(rng)).expand(bsz, 3, 3).contiguous()
+    t0 = torch.tensor([0.5, 0.5, 50.0]).expand(bsz, 3).contiguous()
+    j = torch.arange(n, dtype=torch.int32).expand(bsz, n).contiguous()
+    R, t = kabsch.kabsch_umeyama(_t(src), _t(dst), _t(on.astype(np.float32)))
+    Ru, tu, applied = icp_kabsch_update(_t(src), _t(src_valid), _t(dst), j,
+                                        _t(dmin), torch.ones(bsz), R0, t0)
+    enough = on.sum(-1) >= 3
+    np.testing.assert_array_equal(applied.numpy(), enough)
+    assert torch.isfinite(R).all() and torch.isfinite(t).all()
+    np.testing.assert_allclose(torch.linalg.det(R).numpy(), 1.0, atol=1e-5)
+    if enough.any():
+        # eigh against 8 Jacobi sweeps, weights normalised before H
+        # against after: a few f32 ulps of R and of |t| ~ 60
+        np.testing.assert_allclose(Ru[enough].numpy(), R[enough].numpy(),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(tu[enough].numpy(), t[enough].numpy(),
+                                   rtol=0, atol=1e-4)
+    assert torch.equal(Ru[~enough], R0[~enough])
+    assert torch.equal(tu[~enough], t0[~enough])
+
+
+@pytest.mark.parametrize("ratio", [0.05, 0.25, 0.6, 0.9])
+def test_required_trials_is_the_triad_bound(ratio):
+    """The early-exit bound log(1 - confidence) / log(1 - eps^3) at an
+    inlier ratio eps, against float64, for three frames of 280 valid
+    pairs."""
+    n_valid = torch.full((3,), 280.0)
+    best = torch.tensor([ratio * 280.0] * 3)
+    eps = float(best[0] / n_valid[0])
+    want = np.log1p(-ransac_mod.CONFIDENCE) / np.log1p(-eps ** 3)
+    got = ransac_mod._required_trials(best, n_valid)
+    assert got.dtype == torch.float32
+    # f32 against float64: an ulp or so
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 
 
 def _jax_uniforms(key, n_blocks, hyp_block):
@@ -166,7 +236,7 @@ def test_ransac_matches_jax_with_shared_draws():
 
 
 def _ransac_pose_inline(src, dst, valid, threshold, n_hypotheses, hyp_block,
-                        uniforms, sample_size):
+                        uniforms):
     """solvers.ransac_pose as it ran before its scoring became a kernel
     op, as a plain loop: the draws indexed through the valid indices,
     every frame scored on (B, H, N) residual planes in every block."""
@@ -187,22 +257,15 @@ def _ransac_pose_inline(src, dst, valid, threshold, n_hypotheses, hyp_block,
     done = torch.zeros(bsz, dtype=torch.int64)
     for blk in range(n_blocks):
         active = (done < n_blocks) & (done * hyp_block < ransac_mod.
-                                      _required_trials(best, n_valid,
-                                                       sample_size))
+                                      _required_trials(best, n_valid))
         if not active.any():
             break
         slots = (uniforms[:, blk] * n_valid_i.float()[:, None, None]).to(
             torch.int32)
         slots = torch.minimum(slots, max_slot).long()
         samples = torch.gather(valid_idx, 1, slots.reshape(bsz, -1))
-        samples = samples.reshape(bsz, hyp_block, sample_size)
-        if sample_size == 3:
-            Rs, ts = kabsch.triad_rigid(src[rows, samples],
-                                        dst[rows, samples])
-        else:
-            Rs, ts = kabsch.kabsch_umeyama(src[rows, samples],
-                                           dst[rows, samples],
-                                           torch.ones(samples.shape))
+        samples = samples.reshape(bsz, hyp_block, 3)
+        Rs, ts = kabsch.triad_rigid(src[rows, samples], dst[rows, samples])
         d2 = torch.zeros((bsz, hyp_block, n), dtype=torch.float32)
         for i in range(3):
             pred_i = (Rs[:, :, i, 0, None] * src[:, None, :, 0]
@@ -232,34 +295,27 @@ def _ransac_pose_inline(src, dst, valid, threshold, n_hypotheses, hyp_block,
             "n_trials": done * hyp_block, "ok": n_inl >= 3}
 
 
-@pytest.mark.parametrize("sample_size,scattered", [(3, False), (4, False),
-                                                   (3, True)])
-def test_ransac_pose_bit_identical_to_inline_scoring(sample_size, scattered,
-                                                    monkeypatch):
-    """The shared-draw case (JAX's draws; sample size 4 on numpy draws;
-    scattered: its pairs permuted, so that the valid ones are no prefix)
-    gives ransac_pose's results of before the kernel op, bit for bit, with
-    its refits and without them (the winning hypotheses themselves): the
-    compacted pairs, the op's counts and the skipped exited frames move
-    nothing."""
+# ids: points per hypothesis (triads), pairs scattered
+@pytest.mark.parametrize("scattered", [False, True],
+                         ids=["3-False", "3-True"])
+def test_ransac_pose_bit_identical_to_inline_scoring(scattered, monkeypatch):
+    """The shared-draw case (JAX's draws; scattered: its pairs permuted,
+    so that the valid ones are no prefix) gives ransac_pose's results of
+    before the kernel op, bit for bit, with its refits and without them
+    (the winning hypotheses themselves): the compacted pairs, the op's
+    counts and the skipped exited frames move nothing."""
     n_hyp, hyp_block = 2048, 64
     src, dst, valid, keys = _shared_draw_case()
     if scattered:
         perm = np.random.default_rng(4).permutation(valid.shape[1])
         src, dst, valid = src[:, perm], dst[:, perm], valid[:, perm]
-    if sample_size == 3:
-        u = np.stack([_jax_uniforms(key, n_hyp // hyp_block, hyp_block)
-                      for key in keys])
-    else:
-        u = np.random.default_rng(9).random(
-            (2, n_hyp // hyp_block, hyp_block, 4)).astype(np.float32)
-    args = (_t(src), _t(dst), _t(valid), 0.5, n_hyp, hyp_block, _t(u),
-            sample_size)
+    u = np.stack([_jax_uniforms(key, n_hyp // hyp_block, hyp_block)
+                  for key in keys])
+    args = (_t(src), _t(dst), _t(valid), 0.5, n_hyp, hyp_block, _t(u))
     for refits in (ransac_mod.REFIT_ROUNDS, 0):
         monkeypatch.setattr(ransac_mod, "REFIT_ROUNDS", refits)
         got = solvers.ransac_pose(*args[:4], n_hypotheses=n_hyp,
-                                  hyp_block=hyp_block, uniforms=args[6],
-                                  sample_size=sample_size)
+                                  hyp_block=hyp_block, uniforms=args[6])
         want = _ransac_pose_inline(*args)
         trials = want["n_trials"].tolist()
         assert trials[0] < trials[1] <= n_hyp     # frames exit apart

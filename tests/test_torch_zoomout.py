@@ -1,22 +1,18 @@
-"""The port's ZoomOut refinement, so3_bank and the geometric flip
-disambiguation on the CPU against the JAX package on the same numpy
-inputs."""
+"""The port's ZoomOut refinement, its gate's consistency mean and
+so3_bank on the CPU against the JAX package on the same numpy inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
-from pose6d_tpu.ops.masking import pad_to
 from pose6d_tpu.ops.nn import nearest_valid as jax_nearest_valid
+from pose6d_tpu.solvers import fmap2pointmap as jax_fmap
 from pose6d_tpu.solvers import multistart as jax_multistart
 from pose6d_tpu.solvers.zoomout import zoomout_refine as jax_zoomout
 from pose6d_tpu_torch.ops.nn import nearest_valid
-from pose6d_tpu_torch.solvers import multistart
+from pose6d_tpu_torch.solvers import multistart, zoomout
 from pose6d_tpu_torch.solvers.zoomout import zoomout_refine
-
-from test_multistart import l_shape
-from test_torch_online import _angle_deg
 
 torch.set_num_threads(2)
 
@@ -79,51 +75,35 @@ def test_zoomout_refine_matches_jax(gate_tau):
     assert out.shape == (2, 28, 28)
 
 
+@pytest.mark.parametrize("rows", ["all_valid", "partial", "none_valid"])
+def test_zoomout_gate_mean_matches_jax(rows):
+    """The gate's mean over the valid rows (masked_consistency_sum, the
+    plain version on the CPU) against the JAX package's exact PC-major
+    mean, on a round's matches: the CAD endpoints gathered by a point
+    map, the PC ones the cloud ~50 cm down the axis."""
+    p = _pair(5)
+    rng = np.random.default_rng(6)
+    v2 = p["px"].shape[1]
+    p2p = rng.integers(0, 220, size=(2, v2))
+    ca = np.take_along_axis(p["cx"], p2p[..., None], axis=1)
+    valid = {"all_valid": np.ones((2, v2), bool),
+             "partial": rng.random((2, v2)) > 0.4,
+             "none_valid": np.zeros((2, v2), bool)}[rows]
+    out = zoomout._consistency_mean(_t(ca), _t(p["px"]), _t(valid))
+    assert out.shape == (2, v2)
+    for b in range(2):
+        ref = jax_fmap._consistency_mean(jnp.asarray(ca[b]),
+                                         jnp.asarray(p["px"][b]),
+                                         jnp.asarray(valid[b]))
+        # f32 sums of 160 terms in two orders: a few ulps
+        np.testing.assert_allclose(out[b].numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=0)
+    if rows == "none_valid":
+        assert (out == 0).all()
+
+
 def test_so3_bank_matches_jax_exactly():
     for n in (1, 4, 10):
         np.testing.assert_array_equal(multistart.so3_bank(n),
                                       jax_multistart.so3_bank(n))
     assert multistart.so3_bank(10).dtype == np.float32
-
-
-def test_disambiguate_pose_matches_jax():
-    """The geometric flip bank on an asymmetric L: one frame starts at
-    its observed pose, one from a 180-deg flip of it about the dominant
-    principal axis (which the bank must undo). The same hypothesis, R within 0.01 deg; scores within 1e-4
-    relative plus the f32 noise of a converged score: it averages square
-    roots of |a|^2 - 2 a.b + |b|^2 at |x|^2 ~ 3700 cm^2, which rounds to
-    ~8 eps |x|^2, so a perfect fit reads up to sqrt(8 eps |x|^2) ~ 0.04
-    cm (measured 0.0019 in JAX, 0.0043 in the port)."""
-    pts = l_shape()
-    rng = np.random.default_rng(0)
-    cad = pad_to(pts, 768)
-    cv = np.arange(768) < len(pts)
-    R_gt = Rotation.from_rotvec([0.3, -0.5, 0.2]).as_matrix()
-    t_gt = np.array([1.0, -2.0, 60.0])
-    obs = pts[rng.permutation(len(pts))[:300]] @ R_gt.T + t_gt
-    pc = pad_to(obs.astype(np.float32), 384)
-    pv = np.arange(384) < 300
-    # 180 deg about the L's dominant principal axis, about its centroid
-    mu = pts.mean(0)
-    axis = np.linalg.eigh(np.cov((pts - mu).T))[1][:, 2]
-    flip = Rotation.from_rotvec(np.pi * axis).as_matrix()
-    R0s = np.stack([R_gt, R_gt @ flip]).astype(np.float32)
-    t0s = np.stack([t_gt, t_gt + R_gt @ mu - R_gt @ flip @ mu]
-                   ).astype(np.float32)
-    out = multistart.disambiguate_pose(
-        _t(np.stack([cad] * 2)), _t(np.stack([cv] * 2)),
-        _t(np.stack([pc] * 2)), _t(np.stack([pv] * 2)), _t(R0s), _t(t0s),
-        torch.tensor([12.0, 12.0]), icp_iters=15)
-    for b in range(2):
-        ref = jax_multistart.disambiguate_pose(
-            jnp.asarray(cad), jnp.asarray(cv), jnp.asarray(pc),
-            jnp.asarray(pv), jnp.asarray(R0s[b]), jnp.asarray(t0s[b]),
-            12.0, icp_iters=15)
-        assert int(out["hypothesis"][b]) == int(ref["hypothesis"])
-        assert _angle_deg(out["R"][b].numpy(), np.asarray(ref["R"])) < 0.01
-        noise = np.sqrt(8 * 2.0 ** -24 * (np.abs(pc).max() * np.sqrt(3)) ** 2)
-        np.testing.assert_allclose(out["all_scores"][b].numpy(),
-                                   np.asarray(ref["all_scores"]), rtol=1e-4,
-                                   atol=noise)
-        assert _angle_deg(out["R"][b].numpy(), R_gt) < 1.0
-    assert out["hypothesis"].tolist() == [0, 3]
